@@ -1,0 +1,180 @@
+"""Batched 6-DoF Gauss-Newton machinery (port of ``cooper_mapper_tpu/ops/gauss_newton.py``).
+
+Masked normal-equation assembly, the 6x6 solve with a relative Tikhonov
+floor, the iteration-0 degeneracy projector, NaN scrubbing and the
+deltaR/deltaT convergence test (LaserOdometry.cpp:505-644).  Native mode
+only; the reference-dynamics parity mode is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def assemble_normal_eqs(J, b, valid):
+    """J [..., N, 6], b [..., N], valid [..., N] bool ->
+    (JtJ [..., 6, 6], Jtb [..., 6], n_valid [...]).
+
+    Invalid rows are hard-zeroed with ``torch.where``, never multiplied:
+    masked rows can hold NaN/Inf from FAR-sentinel geometry and 0 * NaN = NaN
+    would poison the whole system.
+    """
+    Jm = torch.where(valid[..., None], J, torch.zeros((), dtype=J.dtype, device=J.device))
+    bm = torch.where(valid, b, torch.zeros((), dtype=b.dtype, device=b.device))
+    JtJ = Jm.transpose(-1, -2) @ Jm
+    Jtb = (Jm.transpose(-1, -2) @ bm[..., None])[..., 0]
+    return JtJ, Jtb, valid.to(J.dtype).sum(dim=-1)
+
+
+def _eye6(like):
+    return torch.eye(6, dtype=like.dtype, device=like.device)
+
+
+def solve_6x6(JtJ, Jtb):
+    """Solve JtJ dx = Jtb for symmetric PSD systems: Cholesky with a RELATIVE
+    Tikhonov floor (1e-7 x mean diagonal) so a rank-deficient system stays
+    positive definite in f32; the degeneracy projector then removes the
+    huge-but-finite null-direction update."""
+    tr = torch.diagonal(JtJ, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    A = JtJ + (1e-7 / 6.0 * tr + 1e-12) * _eye6(JtJ)
+    return _cholesky6_solve(A, Jtb)
+
+
+def _cholesky6_solve(A, b):
+    """Unrolled batched 6x6 Cholesky solve, elementwise over the batch.
+    Non-PSD input yields NaN from sqrt, which nan_guard scrubs."""
+    n = 6
+    a = [[A[..., i, j] for j in range(n)] for i in range(n)]
+    L = [[None] * n for _ in range(n)]
+    inv = [None] * n
+    for j in range(n):
+        s = a[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        d = torch.sqrt(s)
+        L[j][j] = d
+        inv[j] = 1.0 / d
+        for i in range(j + 1, n):
+            s = a[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv[j]
+    y = [None] * n
+    for i in range(n):
+        s = b[..., i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s * inv[i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s * inv[i]
+    return torch.stack(x, dim=-1)
+
+
+def degeneracy_projector(JtJ, eig_threshold):
+    """P = V diag(lam >= thr) V^T from the eigendecomposition of JtJ
+    (LaserOdometry.cpp:583-608, native mode).  Returns (P, is_degenerate).
+    ``torch.linalg.eigh`` stays a library call, as ``jnp.linalg.eigh`` does in
+    the JAX package."""
+    evals, V = torch.linalg.eigh(JtJ)
+    keep = evals >= eig_threshold
+    is_degenerate = torch.any(~keep, dim=-1)
+    P = (V * keep.to(JtJ.dtype)[..., None, :]) @ V.transpose(-1, -2)
+    return P, is_degenerate
+
+
+def nan_guard(x):
+    """Reset non-finite components to 0 (LaserOdometry.cpp:622-634)."""
+    return torch.where(torch.isfinite(x), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def convergence_deltas(dx):
+    """(deltaR [deg], deltaT [cm]) of an update (rx,ry,rz,tx,ty,tz)
+    (LaserOdometry.cpp:636-640)."""
+    delta_r = torch.rad2deg(torch.linalg.vector_norm(dx[..., :3], dim=-1))
+    delta_t = 100.0 * torch.linalg.vector_norm(dx[..., 3:], dim=-1)
+    return delta_r, delta_t
+
+
+@dataclasses.dataclass
+class GNState:
+    """Carry of the batched iterative solve."""
+
+    x: torch.Tensor              # [..., 6] current estimate
+    P: torch.Tensor              # [..., 6, 6] degeneracy projector
+    is_degenerate: torch.Tensor  # [...] bool
+    converged: torch.Tensor      # [...] bool: freezes further updates
+    n_matched: torch.Tensor      # [...] residuals in the last build
+    iter_used: torch.Tensor      # [...] int32 iterations applied
+
+
+def gn_init(x0):
+    batch = x0.shape[:-1]
+    dev = x0.device
+    return GNState(
+        x=x0,
+        P=_eye6(x0).expand(batch + (6, 6)),
+        is_degenerate=torch.zeros(batch, dtype=torch.bool, device=dev),
+        converged=torch.zeros(batch, dtype=torch.bool, device=dev),
+        n_matched=torch.zeros(batch, dtype=x0.dtype, device=dev),
+        iter_used=torch.zeros(batch, dtype=torch.int32, device=dev),
+    )
+
+
+def _clamp_norm(v, limit):
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v * torch.clamp(limit / torch.clamp(n, min=1e-12), max=1.0)
+
+
+def gn_step(state: GNState, JtJ, Jtb, n_valid, iteration: int, eig_threshold,
+            delta_r_abort, delta_t_abort, min_matched, trust_region_t=0.0,
+            trust_region_r=0.0, min_converge_iter=0,
+            compute_projector: bool = False, lm_damping: float = 0.0):
+    """One masked GN update with the reference's guards.
+
+    Converged lanes and lanes with too few matches keep their state
+    (LaserOdometry.cpp:501).  ``trust_region_t/r`` clamp the step's
+    translation/rotation norms; ``min_converge_iter`` forbids convergence
+    before the first refresh.  ``compute_projector`` eigendecomposes JtJ
+    (iteration 0 only).  Degenerate lanes solve the projected system
+    ``P JtJ P + (I - P)`` with right-hand side ``P Jtb``.
+    """
+    if compute_projector:
+        P, is_degenerate = degeneracy_projector(JtJ, eig_threshold)
+    else:
+        P, is_degenerate = state.P, state.is_degenerate
+
+    if lm_damping > 0.0:
+        diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
+        JtJ = JtJ + lm_damping * torch.diag_embed(diag)
+
+    eye = _eye6(JtJ)
+    A_eff = torch.where(is_degenerate[..., None, None], P @ JtJ @ P + (eye - P), JtJ)
+    b_eff = torch.where(is_degenerate[..., None], (P @ Jtb[..., None])[..., 0], Jtb)
+    dx = solve_6x6(A_eff, b_eff)
+
+    if trust_region_t > 0.0:
+        dx = torch.cat([dx[..., :3], _clamp_norm(dx[..., 3:], trust_region_t)], dim=-1)
+    if trust_region_r > 0.0:
+        dx = torch.cat([_clamp_norm(dx[..., :3], trust_region_r), dx[..., 3:]], dim=-1)
+    dx = nan_guard(dx)
+
+    active = (~state.converged) & (n_valid >= min_matched)
+    x_new = nan_guard(state.x + torch.where(active[..., None], dx, torch.zeros_like(dx)))
+
+    delta_r, delta_t = convergence_deltas(dx)
+    just_converged = (active & (delta_r < delta_r_abort) & (delta_t < delta_t_abort)
+                      & (iteration >= min_converge_iter))
+    return GNState(
+        x=x_new,
+        P=P,
+        is_degenerate=is_degenerate,
+        converged=state.converged | just_converged,
+        n_matched=n_valid,
+        iter_used=state.iter_used + active.to(torch.int32),
+    )

@@ -1,0 +1,62 @@
+"""Odometry correspondence searches (port of the odometry half of
+``cooper_mapper_tpu/ops/neighbors.py``).
+
+``corner_pairs`` and ``surf_triples`` run the races of ``ops/races.py``
+(LaserOdometry.cpp:358-497).  The JAX package picks between Pallas kernels
+and dense XLA races with ``resolve_backend``; here the tensors' device picks:
+a CUDA tensor launches the CUDA kernels, a CPU tensor runs their plain
+versions.  The kernels bound the ragged last reference tile themselves, so
+the reference is not padded to a tile multiple (the JAX package's
+``_pad_ref_arrays`` has no counterpart).
+
+Queries are ``[B, Q, 3]``; the reference ``Cloud`` is shared (xyz ``[M, 3]``)
+or per problem (xyz ``[B, M, 3]``).  Returned indices are int32 in
+``[0, M)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.cloud import Cloud
+from . import races
+
+
+def take_ref(values, idx, shared: bool):
+    """Reference field at int32 indices [B, Q]: values [M, ...] when the
+    reference is shared, [B, M, ...] when it is per problem -> [B, Q, ...].
+    Indices come from the races, so they lie in [0, M)."""
+    idx = idx.long()
+    if shared:
+        return values[idx]
+    if values.dim() == 2:
+        return torch.gather(values, 1, idx)
+    return torch.gather(values, 1, idx[..., None].expand(-1, -1, values.shape[-1]))
+
+
+def corner_pairs(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
+    """Odometry corner correspondences (LaserOdometry.cpp:358-408).
+
+    A = nearest reference corner; B = nearest corner on a different ring
+    within ``ring_span`` rings of A's ring.  Returns (ia, ib, valid), [B, Q].
+    """
+    ia, da = races.nn1(q_xyz, ref.xyz, ref.mask)
+    ring_a = take_ref(ref.ring, ia, ref.xyz.dim() == 2)
+    ib, db = races.nn1_masked(q_xyz, ring_a, ia, ref.xyz, ref.ring, ref.mask,
+                              "adj", ring_span)
+    return ia, ib, (da < max_sq_dist) & (db < max_sq_dist)
+
+
+def surf_triples(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
+    """Odometry surface correspondences (LaserOdometry.cpp:421-497).
+
+    A = nearest surf point; B = nearest other surf point on A's ring;
+    C = nearest surf point on a different ring within ``ring_span``.
+    Returns (ia, ib, ic, valid), [B, Q].
+    """
+    ia, da = races.nn1(q_xyz, ref.xyz, ref.mask)
+    ring_a = take_ref(ref.ring, ia, ref.xyz.dim() == 2)
+    ib, db, ic, dc = races.bc_races(q_xyz, ring_a, ia, ref.xyz, ref.ring,
+                                    ref.mask, ring_span)
+    valid = (da < max_sq_dist) & (db < max_sq_dist) & (dc < max_sq_dist)
+    return ia, ib, ic, valid

@@ -1,0 +1,271 @@
+"""The nearest-neighbour races of the odometry correspondence search
+(port of ``cooper_mapper_tpu/ops/pallas/nn1.py``).
+
+Three races, each with a wrapper, a launch counter and a plain PyTorch
+version:
+
+* ``nn1``         — race A: for each query, ``(argmin, min)`` of
+  ``|q|^2 - 2 q.r + |r|^2`` over the reference (``_nn1_kernel``).
+* ``nn1_masked``  — one ring-constrained race: ``"adj"`` keeps candidates
+  with ``0 < |ring - ring_a| <= ring_span``, ``"same"`` those with
+  ``ring == ring_a`` and index ``!= ia`` (``_nn1_masked_kernel``).
+* ``bc_races``    — surf races B (``"same"``) and C (``"adj"``) from one
+  distance per pair (``_bc_races_kernel``).
+
+Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask and
+ring ``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``).  Outputs are
+``[B, Q]``: int32 indices and f32 squared distances.
+
+Dispatch follows the device: a CPU tensor runs the plain version, a CUDA
+tensor launches the kernel (``csrc/races.cu``) or raises.  An invalid
+reference point carries ``|r|^2 = BIG`` and ring ``1e9``; a candidate that
+fails a ring test has distance exactly ``BIG``.  Ties go to the smaller
+index.  Kernel and plain version evaluate the distance with the same f32
+operations in the same order, so they agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BIG = 1.0e12
+RING_INVALID = 1.0e9
+
+# Queries per chunk of the plain versions: bounds their [chunk, Q, M]
+# temporaries to ~2^26 elements per problem chunk.
+_PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_race(q, r_xyz, r_mask, r_ring=None, ring_a=None, ia=None):
+    """Validate one race's inputs; returns (B, Q, M, shared_reference)."""
+    if q.dim() != 3 or q.shape[-1] != 3:
+        raise ValueError(f"queries must be [B, Q, 3], got {tuple(q.shape)}")
+    B, Q, _ = q.shape
+    if r_xyz.dim() not in (2, 3):
+        raise ValueError(f"reference must be [M, 3] or [B, M, 3], got {tuple(r_xyz.shape)}")
+    shared = r_xyz.dim() == 2
+    M = r_xyz.shape[-2]
+    if B < 1 or Q < 1 or M < 1 or B > 65535:
+        raise ValueError(f"unsupported race shape B={B}, Q={Q}, M={M}")
+    dev = q.device
+    lead = () if shared else (B,)
+    _check("q", q, torch.float32, (B, Q, 3), dev)
+    _check("r_xyz", r_xyz, torch.float32, lead + (M, 3), dev)
+    _check("r_mask", r_mask, torch.bool, lead + (M,), dev)
+    if r_ring is not None:
+        _check("r_ring", r_ring, torch.int32, lead + (M,), dev)
+        _check("ring_a", ring_a, torch.int32, (B, Q), dev)
+        _check("ia", ia, torch.int32, (B, Q), dev)
+    return B, Q, M, shared
+
+
+def _sq_norm(p):
+    """(x*x + y*y) + z*z over the trailing axis — the kernels' order."""
+    return p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] + p[..., 2] * p[..., 2]
+
+
+def _ref_norms(r_xyz, r_mask):
+    """|r|^2 with BIG at invalid reference points: [*, M]."""
+    return torch.where(r_mask, _sq_norm(r_xyz), torch.full_like(r_mask, BIG, dtype=torch.float32))
+
+
+def _ref_rings(r_ring, r_mask):
+    """Ring as f32 with RING_INVALID at invalid reference points: [*, M]."""
+    return torch.where(r_mask, r_ring.to(torch.float32),
+                       torch.full_like(r_mask, RING_INVALID, dtype=torch.float32))
+
+
+def _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask, mode="adj"):
+    """Validate a ring race's inputs and derive what both paths read:
+    (B, Q, M, shared, |r|^2 [*, M], ring [*, M] f32, ring_a [B, Q] f32)."""
+    if mode not in ("same", "adj"):
+        raise ValueError(f"mode must be 'same' or 'adj', got {mode!r}")
+    B, Q, M, shared = _check_race(q, r_xyz, r_mask, r_ring, ring_a, ia)
+    return (B, Q, M, shared, _ref_norms(r_xyz, r_mask), _ref_rings(r_ring, r_mask),
+            ring_a.to(torch.float32))
+
+
+def pairwise_sq_dist(q, r, rn):
+    """[B, Q, 3] x [*, M, 3] (+ |r|^2 [*, M]) -> [B, Q, M] squared distances,
+    ``(|q|^2 - 2*cross) + |r|^2`` with ``cross = (qx*rx + qy*ry) + qz*rz``.
+
+    Written elementwise, so every product and sum is one IEEE f32 operation
+    in a fixed order (no TF32, no FMA contraction): the CUDA kernels repeat
+    exactly these operations.
+    """
+    if r.dim() == 2:
+        r, rn = r[None], rn[None]
+    qx, qy, qz = (q[..., i, None] for i in range(3))
+    rx, ry, rz = (r[..., None, :, i] for i in range(3))
+    cross = qx * rx + qy * ry + qz * rz
+    qn = _sq_norm(q)[..., None]
+    return qn - 2.0 * cross + rn[..., None, :]
+
+
+def _batch_chunks(B, Q, M):
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(1, Q * M))
+    return [(s, min(B, s + step)) for s in range(0, B, step)]
+
+
+def _take(t, shared, s, e):
+    return t if shared else t[s:e]
+
+
+def _argmin_rows(d):
+    """(first index of the row minimum as int32, the minimum)."""
+    i = torch.argmin(d, dim=-1)
+    return i.to(torch.int32), torch.gather(d, -1, i[..., None])[..., 0]
+
+
+def _ring_ok(ring, ra, ia, mode, ring_span, M):
+    """Candidate mask of a ring race: ring [*, M], ra/ia [b, Q] -> [b, Q, M]."""
+    if ring.dim() == 1:
+        ring = ring[None]
+    ring = ring[..., None, :]
+    if mode == "same":
+        cols = torch.arange(M, device=ring.device, dtype=torch.int32)
+        return (ring == ra[..., None]) & (cols != ia[..., None])
+    rd = torch.abs(ring - ra[..., None])
+    return (rd > 0.0) & (rd <= ring_span)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the oracle the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def nn1_plain(q, r_xyz, r_mask):
+    """Race A, plain PyTorch: (idx [B, Q] int32, sq_dist [B, Q] f32)."""
+    B, Q, M, shared = _check_race(q, r_xyz, r_mask)
+    rn = _ref_norms(r_xyz, r_mask)
+    idx, dist = [], []
+    for s, e in _batch_chunks(B, Q, M):
+        d = pairwise_sq_dist(q[s:e], _take(r_xyz, shared, s, e), _take(rn, shared, s, e))
+        i, m = _argmin_rows(d)
+        idx.append(i)
+        dist.append(m)
+    return torch.cat(idx), torch.cat(dist)
+
+
+def nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
+                     ring_span: float = 2.5):
+    """One ring-constrained race, plain PyTorch: (idx, sq_dist) [B, Q]."""
+    B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring,
+                                                      r_mask, mode)
+    idx, dist = [], []
+    for s, e in _batch_chunks(B, Q, M):
+        d = pairwise_sq_dist(q[s:e], _take(r_xyz, shared, s, e), _take(rn, shared, s, e))
+        ok = _ring_ok(_take(ring, shared, s, e), ra[s:e], ia[s:e], mode, ring_span, M)
+        i, m = _argmin_rows(torch.where(ok, d, BIG))
+        idx.append(i)
+        dist.append(m)
+    return torch.cat(idx), torch.cat(dist)
+
+
+def bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
+    """Surf races B ("same") and C ("adj") from one distance per pair, plain
+    PyTorch: (ib, db, ic, dc), each [B, Q]."""
+    B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask)
+    outs = [[], [], [], []]
+    for s, e in _batch_chunks(B, Q, M):
+        d = pairwise_sq_dist(q[s:e], _take(r_xyz, shared, s, e), _take(rn, shared, s, e))
+        rg = _take(ring, shared, s, e)
+        ok_b = _ring_ok(rg, ra[s:e], ia[s:e], "same", ring_span, M)
+        ok_c = _ring_ok(rg, ra[s:e], ia[s:e], "adj", ring_span, M)
+        for k, res in enumerate(_argmin_rows(torch.where(ok_b, d, BIG))
+                                + _argmin_rows(torch.where(ok_c, d, BIG))):
+            outs[k].append(res)
+    return tuple(torch.cat(o) for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version on the CPU, kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def _launch(name: str, q, fn, *args):
+    """Call C launcher ``fn`` on q's device and current stream; raise on the
+    ``cudaGetLastError()`` code it returns."""
+    with torch.cuda.device(q.device):
+        status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
+
+
+def _require_device(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"races run on cpu or cuda tensors, got {q.device}")
+    return q.device.type == "cuda"
+
+
+def nn1(q, r_xyz, r_mask):
+    """Race A: (idx [B, Q] int32, sq_dist [B, Q] f32)."""
+    if not _require_device(q):
+        return nn1_plain(q, r_xyz, r_mask)
+    from ..build import library
+
+    B, Q, M, shared = _check_race(q, r_xyz, r_mask)
+    rn = _ref_norms(r_xyz, r_mask)
+    out_d = torch.empty((B, Q), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, Q), dtype=torch.int32, device=q.device)
+    _launch("nn1", q, library().cooper_nn1,
+            q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), B, Q, M, 0 if shared else M)
+    nn1.launches += 1
+    return out_i, out_d
+
+
+def nn1_masked(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
+               ring_span: float = 2.5):
+    """One ring-constrained race ("adj" or "same"): (idx, sq_dist) [B, Q]."""
+    if not _require_device(q):
+        return nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span)
+    from ..build import library
+
+    B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring,
+                                                      r_mask, mode)
+    out_d = torch.empty((B, Q), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, Q), dtype=torch.int32, device=q.device)
+    _launch("nn1_masked", q, library().cooper_nn1_masked,
+            q.data_ptr(), ra.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
+            rn.data_ptr(), ring.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            B, Q, M, 0 if shared else M, int(mode == "same"), float(ring_span))
+    nn1_masked.launches += 1
+    return out_i, out_d
+
+
+def bc_races(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
+    """Surf races B and C: (ib, db, ic, dc), each [B, Q]."""
+    if not _require_device(q):
+        return bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span)
+    from ..build import library
+
+    B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask)
+    db = torch.empty((B, Q), dtype=torch.float32, device=q.device)
+    ib = torch.empty((B, Q), dtype=torch.int32, device=q.device)
+    dc = torch.empty((B, Q), dtype=torch.float32, device=q.device)
+    ic = torch.empty((B, Q), dtype=torch.int32, device=q.device)
+    _launch("bc_races", q, library().cooper_bc_races,
+            q.data_ptr(), ra.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
+            rn.data_ptr(), ring.data_ptr(), db.data_ptr(), ib.data_ptr(),
+            dc.data_ptr(), ic.data_ptr(), B, Q, M, 0 if shared else M,
+            float(ring_span))
+    bc_races.launches += 1
+    return ib, db, ic, dc
+
+
+nn1.launches = 0
+nn1_masked.launches = 0
+bc_races.launches = 0
+KERNELS = (nn1, nn1_masked, bc_races)

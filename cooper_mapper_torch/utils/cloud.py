@@ -1,0 +1,48 @@
+"""Fixed-capacity masked point clouds (port of ``cooper_mapper_tpu/utils/cloud.py``).
+
+A ``Cloud`` is a struct of tensors with a static capacity N and a validity
+mask; any number of leading batch dimensions is allowed.  Invalid entries
+hold the FAR sentinel so they lose every nearest-neighbour race.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Far-away sentinel for invalid points: far outside the 150 m valid distance,
+# so a sentinel never passes a squared-distance gate.
+FAR = 1.0e6
+
+
+@dataclasses.dataclass
+class Cloud:
+    """xyz [..., N, 3] f32, mask [..., N] bool, ring [..., N] i32,
+    rel_time [..., N] f32 (in-sweep time fraction)."""
+
+    xyz: torch.Tensor
+    mask: torch.Tensor
+    ring: torch.Tensor
+    rel_time: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[-2]
+
+
+def make(xyz, mask, ring=None, rel_time=None) -> Cloud:
+    n = xyz.shape[:-1]
+    if ring is None:
+        ring = torch.zeros(n, dtype=torch.int32, device=xyz.device)
+    if rel_time is None:
+        rel_time = torch.zeros(n, dtype=torch.float32, device=xyz.device)
+    return Cloud(xyz, mask, ring, rel_time)
+
+
+def compact(c: Cloud, capacity: int | None = None) -> Cloud:
+    """Stable-sort valid points to the front of an unbatched cloud, then keep
+    the first ``capacity`` entries."""
+    cap = capacity or c.capacity
+    order = torch.argsort((~c.mask).to(torch.int8), stable=True)[:cap]
+    return Cloud(c.xyz[order], c.mask[order], c.ring[order], c.rel_time[order])

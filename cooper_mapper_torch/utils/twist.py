@@ -1,0 +1,54 @@
+"""LOAM twist parameterization and in-sweep motion warps
+(port of ``cooper_mapper_tpu/utils/twist.py``).
+
+The solver state is a 6-vector ``x = [rx, ry, rz, tx, ty, tz]``; the warps
+are forward TZYX transforms of the (time-scaled) twist
+(LaserOdometry.cpp:135-142, transform_utils.h:476-482).  All functions
+broadcast over leading batch dimensions of state and points.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import se3
+
+
+def _tzyx_apply_elementwise(rx, ry, rz, tx, ty, tz, points):
+    """Rz(rz) Ry(ry) Rx(rx) p + t with per-point angles, elementwise."""
+    sx, cx = torch.sin(rx), torch.cos(rx)
+    sy, cy = torch.sin(ry), torch.cos(ry)
+    sz, cz = torch.sin(rz), torch.cos(rz)
+    px, py, pz = points[..., 0], points[..., 1], points[..., 2]
+    ox = cz * cy * px + (cz * sy * sx - sz * cx) * py + (cz * sy * cx + sz * sx) * pz + tx
+    oy = sz * cy * px + (sz * sy * sx + cz * cx) * py + (sz * sy * cx - cz * sx) * pz + ty
+    oz = -sy * px + cy * sx * py + cy * cx * pz + tz
+    return torch.stack([ox, oy, oz], dim=-1)
+
+
+def warp_to_start(x, points, s):
+    """``p_start = TZYX(s*x) p``: x [..., 6], points [..., N, 3], s [..., N]."""
+    return _tzyx_apply_elementwise(
+        s * x[..., None, 0], s * x[..., None, 1], s * x[..., None, 2],
+        s * x[..., None, 3], s * x[..., None, 4], s * x[..., None, 5],
+        points,
+    )
+
+
+def point_to_map(x, points):
+    """World registration ``Rz Ry Rx p + t``: x [..., 6], points [..., N, 3]."""
+    return _tzyx_apply_elementwise(
+        x[..., None, 0], x[..., None, 1], x[..., None, 2],
+        x[..., None, 3], x[..., None, 4], x[..., None, 5],
+        points,
+    )
+
+
+def to_mat(x):
+    """Twist 6-vec -> 4x4 matrix in the canonical TZYX convention."""
+    return se3.euler6_to_mat(x)
+
+
+def from_relative_motion(M):
+    """Relative sweep motion (4x4) -> twist 6-vec."""
+    return se3.mat_to_euler6(M)

@@ -1,0 +1,53 @@
+"""The kernel build's bookkeeping, with a stand-in nvcc: one compiler call
+for all sources, no rebuild while the sources are unchanged, a rebuild when
+one changes.  (The real nvcc build runs on the card: chip_smoke.py.)"""
+
+import os
+import stat
+
+import pytest
+
+pytest.importorskip("torch")
+
+from cooper_mapper_torch import build  # noqa: E402
+
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "{log}"
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then shift; echo lib > "$1"; fi
+  shift
+done
+"""
+
+
+@pytest.fixture
+def fake_toolkit(tmp_path, monkeypatch):
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    log = tmp_path / "nvcc_calls.log"
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    return log, csrc
+
+
+def test_one_nvcc_call_then_cached_until_a_source_changes(fake_toolkit):
+    log, csrc = fake_toolkit
+    path = build.build()
+    assert os.path.isfile(path) and path.endswith(build.LIB_NAME)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1
+    assert "arch=compute_90a,code=sm_90a" in calls[0]
+    assert calls[0].count(".cu") == 2          # every source in the one call
+    build.build()
+    assert len(log.read_text().splitlines()) == 1
+    (csrc / "b.cu").write_text("// changed\n")
+    build.build()
+    assert len(log.read_text().splitlines()) == 2

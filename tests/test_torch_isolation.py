@@ -1,0 +1,71 @@
+"""The port imports neither JAX nor the JAX package, and keeps TF32 off.
+
+The machine that holds the card has no JAX, so every module of
+``cooper_mapper_torch`` and ``chip_smoke.py`` must import with ``jax`` and
+``cooper_mapper_tpu`` made unimportable.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORTS = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+sys.modules["jax"] = None
+sys.modules["cooper_mapper_tpu"] = None
+import importlib, pkgutil
+import cooper_mapper_torch
+names = [m.name for m in pkgutil.walk_packages(cooper_mapper_torch.__path__, "cooper_mapper_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "cooper_mapper_tpu")))
+assert not [m for m in leaked if sys.modules[m] is not None], leaked
+print(len(names))
+"""
+
+
+def _run(code):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=ROOT)
+
+
+def test_imports_without_jax():
+    res = _run(_BLOCKED_IMPORTS)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 13
+
+
+def test_tf32_off_after_import():
+    res = _run(
+        f"import sys; sys.path.insert(0, {ROOT!r})\n"
+        "import torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = True\n"
+        "torch.backends.cudnn.allow_tf32 = True\n"
+        "import cooper_mapper_torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "assert torch.backends.cudnn.allow_tf32 is False\n"
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_module_list_covers_the_slice():
+    import cooper_mapper_torch
+
+    names = {m.name for m in pkgutil.walk_packages(cooper_mapper_torch.__path__,
+                                                   "cooper_mapper_torch.")}
+    for mod in ("config", "bridge", "build", "utils.se3", "utils.twist",
+                "utils.cloud", "io.sim", "ops.eig3", "ops.voxel", "ops.features",
+                "ops.neighbors", "ops.races", "ops.residuals", "ops.gauss_newton",
+                "ops.odometry"):
+        assert f"cooper_mapper_torch.{mod}" in names

@@ -1,0 +1,82 @@
+"""The CUDA race kernels against their plain PyTorch versions, on a card.
+
+These tests need an NVIDIA card and skip without one.  The file imports no
+JAX, so it also runs on a machine that has none:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+(``--noconftest`` skips tests/conftest.py, which imports JAX.)  Kernel and
+plain version perform the same f32 operations in the same order, so
+indices and distances must be bit-identical.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cooper_mapper_torch.ops import races  # noqa: E402
+from cooper_mapper_torch.ops.neighbors import take_ref  # noqa: E402
+
+R, SPAN = 16, 2.5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA race kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _problem(seed, B, Q, M, per_problem, device):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.uniform(-8, 8, (B, Q, 3)).astype(np.float32)).to(device)
+    lead = (B,) if per_problem else ()
+    xyz = torch.from_numpy(rng.uniform(-8, 8, lead + (M, 3)).astype(np.float32)).to(device)
+    ring = torch.from_numpy(rng.randint(0, R, lead + (M,)).astype(np.int32)).to(device)
+    mask = torch.from_numpy(rng.rand(*(lead + (M,))) > 0.1).to(device)
+    return q, xyz, ring, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("Q,M", [(256, 256), (100, 1000), (768, 3840)])
+def test_kernels_equal_plain_versions(cuda, per_problem, Q, M):
+    # ragged shapes included: Q not a multiple of the 128-query block, M not
+    # a multiple of the 512-point reference tile
+    q, xyz, ring, mask = _problem(11, 4, Q, M, per_problem, cuda)
+    before = [k.launches for k in races.KERNELS]
+    ia, da = races.nn1(q, xyz, mask)
+    pia, pda = races.nn1_plain(q, xyz, mask)
+    assert torch.equal(ia, pia) and torch.equal(da, pda)
+    ring_a = take_ref(ring, ia, not per_problem)
+    for mode in ("adj", "same"):
+        args = (q, ring_a, ia, xyz, ring, mask, mode, SPAN)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(races.nn1_masked(*args), races.nn1_masked_plain(*args)))
+    args = (q, ring_a, ia, xyz, ring, mask, SPAN)
+    assert all(torch.equal(a, b) for a, b in
+               zip(races.bc_races(*args), races.bc_races_plain(*args)))
+    torch.cuda.synchronize()
+    after = [k.launches for k in races.KERNELS]
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 1]
+
+
+@pytest.mark.cuda
+def test_ties_and_self_exclusion_on_card(cuda):
+    # tests/test_nn1_pallas.py's tie and exclude-A cases, on the kernels
+    q = torch.tensor([[1.0, 2.0, 3.0], [0.0, 0.0, 0.0]] * 64, device=cuda)[None]
+    r = torch.tensor([[1.0, 2.0, 3.0]], device=cuda).repeat(600, 1)
+    ia, _ = races.nn1(q, r, torch.ones(600, dtype=torch.bool, device=cuda))
+    assert int(ia[0, 0]) == 0 and int(ia[0, 1]) == 0
+    q = torch.tensor([[1.0, 0.0, 0.0]], device=cuda).repeat(128, 1)[None].contiguous()
+    xyz = torch.from_numpy(np.random.RandomState(0).uniform(2, 9, (128, 3)).astype(np.float32))
+    xyz[:2] = torch.tensor([1.0, 0.0, 0.0])
+    xyz = xyz.to(cuda)
+    ring = torch.zeros(128, dtype=torch.int32, device=cuda)
+    mask = torch.ones(128, dtype=torch.bool, device=cuda)
+    ia, _ = races.nn1(q, xyz, mask)
+    ib, db = races.nn1_masked(q, ring[ia.long()], ia, xyz, ring, mask, "same")
+    assert int(ia[0, 0]) == 0 and int(ib[0, 0]) == 1 and float(db[0, 0]) < 1e-6
+    bb, bdb, _, _ = races.bc_races(q, ring[ia.long()], ia, xyz, ring, mask)
+    assert int(bb[0, 0]) == 1 and float(bdb[0, 0]) < 1e-6

@@ -1,0 +1,180 @@
+"""The race kernels' plain versions (cooper_mapper_torch/ops/races.py) vs the
+JAX package's dense races and its Pallas kernels in interpret mode.
+
+Contract (the JAX package's own, tests/test_nn1_pallas.py): equal indices
+for every query inside the 25 m^2 gate, ties toward the smaller index,
+distances within rtol 1e-5 / atol 1e-4 (the JAX side forms q.r with a
+matrix product, the port with three products and two sums).
+The CUDA kernels themselves are held to the plain versions on a card by
+tests/test_torch_kernels_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from cooper_mapper_tpu.ops import neighbors as jnb  # noqa: E402
+from cooper_mapper_tpu.ops.pallas import nn1 as jpallas  # noqa: E402
+from cooper_mapper_tpu.utils.cloud import Cloud as JCloud  # noqa: E402
+from cooper_mapper_torch.ops import races  # noqa: E402
+
+GATE = 25.0
+Q, M, R, SPAN = 128, 256, 16, 2.5
+
+
+def _ring_problem(seed, mask_frac=0.1):
+    rng = np.random.RandomState(seed)
+    q = rng.uniform(-8, 8, (Q, 3)).astype(np.float32)
+    xyz = rng.uniform(-8, 8, (M, 3)).astype(np.float32)
+    ring = rng.randint(0, R, M).astype(np.int32)
+    mask = rng.rand(M) > mask_frac
+    return q, xyz, ring, mask
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _pallas(fn, *args, **kw):
+    return fn(*args, tile_q=128, tile_m=128, interpret=True, **kw)
+
+
+def _assert_race(got, want, gated):
+    (ig, dg), (iw, dw) = got, want
+    ig, dg = ig.numpy()[0], dg.numpy()[0]
+    iw, dw = np.asarray(iw), np.asarray(dw)
+    np.testing.assert_array_equal(ig[gated], iw[gated])
+    np.testing.assert_allclose(dg[gated], dw[gated], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nn1_plain_matches_jax(seed):
+    q, xyz, ring, mask = _ring_problem(seed)
+    got = races.nn1_plain(_t(q[None]), _t(xyz), _t(mask))
+    dense = jnb.nn1(jnp.asarray(q), jnp.asarray(xyz), jnp.asarray(mask))
+    kern = _pallas(jpallas.nn1_pallas, jnp.asarray(q), jnp.asarray(xyz), jnp.asarray(mask))
+    gated = np.asarray(dense[1]) < GATE
+    assert gated.mean() > 0.9
+    _assert_race(got, dense, gated)
+    _assert_race(got, kern, gated)
+
+
+@pytest.mark.parametrize("mode", ["adj", "same"])
+def test_nn1_masked_plain_matches_jax(mode):
+    q, xyz, ring, mask = _ring_problem(3)
+    ia, da = races.nn1_plain(_t(q[None]), _t(xyz), _t(mask))
+    ring_a = _t(ring)[ia.long()]
+    got = races.nn1_masked_plain(_t(q[None]), ring_a, ia, _t(xyz), _t(ring), _t(mask), mode, SPAN)
+    jq, jref = jnp.asarray(q), JCloud(jnp.asarray(xyz), jnp.asarray(mask), jnp.asarray(ring),
+                                      jnp.zeros(M, jnp.float32))
+    jia = jnp.asarray(ia.numpy()[0])
+    kern = _pallas(jpallas.nn1_masked_pallas, jq, jref.ring[jia], jia, jref.xyz, jref.ring,
+                   jref.mask, mode, SPAN)
+    # the dense searches: corner race B is "adj"; surf races B / C are "same" / "adj"
+    if mode == "adj":
+        _, jib, _ = jnb.corner_pairs(jq, jref, GATE, ring_span=SPAN, n_rings=R)
+    else:
+        _, jib, _, _ = jnb.surf_triples(jq, jref, GATE, ring_span=SPAN, n_rings=R)
+    gated = (np.asarray(kern[1]) < GATE) & (da.numpy()[0] < GATE)
+    assert gated.mean() > 0.5
+    _assert_race(got, kern, gated)
+    np.testing.assert_array_equal(got[0].numpy()[0][gated], np.asarray(jib)[gated])
+
+
+def test_bc_races_plain_matches_jax():
+    q, xyz, ring, mask = _ring_problem(5)
+    ia, da = races.nn1_plain(_t(q[None]), _t(xyz), _t(mask))
+    ring_a = _t(ring)[ia.long()]
+    ib, db, ic, dc = races.bc_races_plain(_t(q[None]), ring_a, ia, _t(xyz), _t(ring), _t(mask), SPAN)
+    jia = jnp.asarray(ia.numpy()[0])
+    jring = jnp.asarray(ring)
+    kb, kdb, kc, kdc = _pallas(jpallas.bc_races_pallas, jnp.asarray(q), jring[jia], jia,
+                               jnp.asarray(xyz), jring, jnp.asarray(mask), SPAN)
+    jref = JCloud(jnp.asarray(xyz), jnp.asarray(mask), jring, jnp.zeros(M, jnp.float32))
+    jia_d, jib_d, jic_d, jok = jnb.surf_triples(jnp.asarray(q), jref, GATE, ring_span=SPAN, n_rings=R)
+    ok = (da.numpy()[0] < GATE) & (db.numpy()[0] < GATE) & (dc.numpy()[0] < GATE)
+    np.testing.assert_array_equal(ok, np.asarray(jok))
+    gb = np.asarray(kdb) < GATE
+    gc = np.asarray(kdc) < GATE
+    _assert_race((ib, db), (kb, kdb), gb)
+    _assert_race((ic, dc), (kc, kdc), gc)
+    for got, want in ((ia, jia_d), (ib, jib_d), (ic, jic_d)):
+        np.testing.assert_array_equal(got.numpy()[0][ok], np.asarray(want)[ok])
+
+
+def test_bc_races_equal_two_masked_races():
+    q, xyz, ring, mask = _ring_problem(6)
+    args = (_t(q[None]),)
+    ia, _ = races.nn1_plain(args[0], _t(xyz), _t(mask))
+    rest = (_t(ring)[ia.long()], ia, _t(xyz), _t(ring), _t(mask))
+    ib, db, ic, dc = races.bc_races_plain(args[0], *rest, SPAN)
+    sb = races.nn1_masked_plain(args[0], *rest, "same", SPAN)
+    sc = races.nn1_masked_plain(args[0], *rest, "adj", SPAN)
+    for a, b in ((ib, sb[0]), (db, sb[1]), (ic, sc[0]), (dc, sc[1])):
+        assert torch.equal(a, b)
+
+
+def test_tie_breaks_toward_smaller_index():
+    # duplicate reference points: the winner is the smaller index, as in
+    # jnp.argmin over the full tile and the Pallas kernel across tiles
+    q = np.asarray([[1.0, 2.0, 3.0], [0.0, 0.0, 0.0]] * 64, np.float32)
+    r = np.tile(np.asarray([[1.0, 2.0, 3.0]], np.float32), (256, 1))
+    mask = np.ones(256, bool)
+    ia, _ = races.nn1_plain(_t(q[None]), _t(r), _t(mask))
+    kern, _ = _pallas(jpallas.nn1_pallas, jnp.asarray(q), jnp.asarray(r), jnp.asarray(mask))
+    assert int(ia[0, 0]) == 0 and int(kern[0]) == 0
+    np.testing.assert_array_equal(ia.numpy()[0], np.asarray(kern))
+
+
+def test_masked_race_excludes_a_itself():
+    # "same" never returns A, even when A is duplicated in the reference
+    q = np.tile([[1.0, 0.0, 0.0]], (128, 1)).astype(np.float32)
+    xyz = np.zeros((128, 3), np.float32)
+    xyz[0] = [1.0, 0.0, 0.0]
+    xyz[1] = [1.0, 0.0, 0.0]
+    xyz[2:] = np.random.RandomState(0).uniform(2, 9, (126, 3))
+    ring = np.zeros(128, np.int32)
+    mask = np.ones(128, bool)
+    ia, _ = races.nn1_plain(_t(q[None]), _t(xyz), _t(mask))
+    ring_a = _t(ring)[ia.long()]
+    ib, db = races.nn1_masked_plain(_t(q[None]), ring_a, ia, _t(xyz), _t(ring), _t(mask), "same")
+    assert int(ia[0, 0]) == 0
+    assert int(ib[0, 0]) == 1 and float(db[0, 0]) < 1e-6
+    bb, bdb, _, _ = races.bc_races_plain(_t(q[None]), ring_a, ia, _t(xyz), _t(ring), _t(mask))
+    assert int(bb[0, 0]) == 1 and float(bdb[0, 0]) < 1e-6
+
+
+def test_shared_and_per_problem_references_agree():
+    B = 3
+    rng = np.random.RandomState(7)
+    q = rng.uniform(-8, 8, (B, Q, 3)).astype(np.float32)
+    _, xyz, ring, mask = _ring_problem(8)
+    shared = (_t(xyz), _t(ring), _t(mask))
+    tiled = tuple(torch.stack([t] * B) for t in shared)
+    ia, da = races.nn1_plain(_t(q), shared[0], shared[2])
+    ia2, da2 = races.nn1_plain(_t(q), tiled[0], tiled[2])
+    assert torch.equal(ia, ia2) and torch.equal(da, da2)
+    ring_a = shared[1][ia.long()]
+    out = races.bc_races_plain(_t(q), ring_a, ia, *shared)
+    out2 = races.bc_races_plain(_t(q), ring_a, ia, *tiled)
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+
+
+def test_wrappers_reject_bad_inputs():
+    q, xyz, ring, mask = _ring_problem(0)
+    tq, tx, tm = _t(q[None]), _t(xyz), _t(mask)
+    with pytest.raises(ValueError):
+        races.nn1(tq.double(), tx, tm)                       # dtype
+    with pytest.raises(ValueError):
+        races.nn1(tq[0], tx, tm)                             # shape
+    with pytest.raises(ValueError):
+        races.nn1(tq.transpose(1, 2).contiguous().transpose(1, 2), tx, tm)  # contiguity
+    with pytest.raises(ValueError):
+        races.nn1(tq, tx, tm[:-1])                           # mask length
+    ia, _ = races.nn1(tq, tx, tm)
+    with pytest.raises(ValueError):
+        races.nn1_masked(tq, _t(ring)[ia.long()], ia, tx, _t(ring), tm, "near")
