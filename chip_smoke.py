@@ -49,13 +49,17 @@ MAX_TIE_SHARE = 1e-3        # ties allowed per race, as a share of queries
 DIST_RTOL = 1e-4
 CPU_LANES, CPU_TOL = 4, 2e-3   # tests/test_odometry.py's tolerance between NN paths
 TRANS_TOL, ROT_TOL = 0.05, 0.01  # tests/test_odometry.py::test_recovers_motion
-# Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores
-# and HBM3 bandwidth, at the full 700 W power limit.
-FP32_PEAK_OPS = 67e12
+# Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit:
+# HBM3 bandwidth, and FP32 outside the tensor cores, 67 TFLOP/s counting an
+# FMA as two operations.  The race kernels issue no FMA (their rounding must
+# equal the plain version's), so one FP32 operation takes one issue slot and
+# their peak is half that: 132 SMs x 128 lanes x 1.98 GHz.
+FP32_PEAK_OPS = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 # FP32 operations per (query, reference) pair: 8 for d = (|q|^2 - 2 q.r) + |r|^2
 # (3 mul, 2 add, 1 scale, 1 sub, 1 add), 1 compare per running minimum, and
-# the ring tests ("adj": sub, 2 compares; "same": 1 compare).
+# the ring tests ("adj": sub, 2 compares; "same": 1 compare).  The selects
+# that keep (min, argmin) are left out, so the bound is a floor.
 OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14}
 
 
@@ -98,7 +102,6 @@ def make_problem(device):
     from cooper_mapper_torch.config import RegistrationConfig
     from cooper_mapper_torch.io import sim
     from cooper_mapper_torch.ops import features
-    from cooper_mapper_torch.utils import cloud
 
     world = sim.make_room_world(seed=WORLD_SEED, device=device)
     p0 = torch.eye(4, device=device)
@@ -109,13 +112,15 @@ def make_problem(device):
     cfg = RegistrationConfig(n_rings=RINGS, max_points_per_ring=WIDTH)
     f_prev = features.extract_features(sim.scan_sweep(world, p0, p0, RINGS, WIDTH), cfg)
     f_cur = features.extract_features(sim.scan_sweep(world, p0, p0 @ motion, RINGS, WIDTH), cfg)
-
-    def snug(cl, granule=256):
-        n = int(cl.mask.sum())
-        return cloud.compact(cl, -(-n // granule) * granule)
-
     return (snug(f_cur.sharp), snug(f_cur.flat), snug(f_prev.less_sharp),
             snug(f_prev.less_flat), motion)
+
+
+def snug(cl, granule=256):
+    """``cl`` compacted to its valid count rounded up to ``granule``."""
+    from cooper_mapper_torch.utils import cloud
+
+    return cloud.compact(cl, -(-int(cl.mask.sum()) // granule) * granule)
 
 
 def tile(cl, b):
@@ -343,7 +348,7 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     return launches, B / best, B / med
 
 
-def main(end_to_end: bool = True):
+def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
     import cooper_mapper_torch  # noqa: F401  (TF32 off)
@@ -360,8 +365,6 @@ def main(end_to_end: bool = True):
     x0 = torch.from_numpy((0.02 * np.random.RandomState(0).randn(BATCH, 6))
                           .astype(np.float32)).to(device)
     kern = kernel_phase(sharp, flat, ref_c, ref_s, x0)
-    if not end_to_end:
-        return
     launches, sps_best, sps_med = solve_phase(sharp, flat, ref_c, ref_s, x0, motion)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "nn1_pallas / _nn1_kernel"),

@@ -3,10 +3,12 @@
 Field-for-field copies of ``RegistrationConfig`` and ``OdometryConfig`` in
 ``cooper_mapper_tpu/config.py`` (tests/test_torch_config.py holds them
 together).  The port keeps its own copy because it must import nothing of
-the JAX package.  ``nn_precision`` and ``kernel_backend`` are carried for
-field parity; the port's dispatch follows the tensors' device instead
-(a CUDA tensor launches the race kernels, a CPU tensor runs their plain
-versions) and its products are always full f32.
+the JAX package.  ``nn_query_chunk``, ``kernel_backend``, ``nn_precision``
+and ``unroll_iters`` are carried for field parity only, and the solve
+raises unless they keep their defaults: the port's dispatch follows the
+tensors' device (a CUDA tensor launches the race kernels, a CPU tensor runs
+their plain versions), its products are always full f32, and its GN loop
+is a Python loop.
 """
 
 from __future__ import annotations

@@ -113,12 +113,20 @@ def _find_correspondences(x, sharp: Cloud, flat: Cloud, last_corner: Cloud,
     )
 
 
+# fields carried for parity with the JAX package's config only: the port's
+# dispatch follows the tensors' device, its products are full f32 and its
+# GN loop is a Python loop, so each must keep its default
+_PARITY_ONLY = ("nn_query_chunk", "kernel_backend", "nn_precision", "unroll_iters")
+
+
 def _check_supported(cfg: OdometryConfig):
-    if cfg.dewarp_passes > 1 or cfg.nn_query_chunk or cfg.nn_precision is not None \
-            or cfg.kernel_backend != "auto":
-        raise NotImplementedError(
-            "the port runs dewarp_passes=1, nn_query_chunk=0, nn_precision=None "
-            "and kernel_backend='auto' (device-driven dispatch) only")
+    if cfg.dewarp_passes > 1:
+        raise NotImplementedError("the port runs dewarp_passes=1 only")
+    for name in _PARITY_ONLY:
+        default = getattr(OdometryConfig, name)
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"OdometryConfig.{name} is carried for parity only; keep it at {default!r}")
 
 
 def _odometry_solve_pass(sharp: Cloud, flat: Cloud, last_corner: Cloud,

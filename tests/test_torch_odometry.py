@@ -123,6 +123,16 @@ def test_per_problem_references_and_single_solve():
     np.testing.assert_allclose(x1.numpy(), xt[0].numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("field,value", [("nn_query_chunk", 256), ("kernel_backend", "dense"),
+                                         ("nn_precision", "high"), ("unroll_iters", True)])
+def test_parity_only_options_raise(field, value):
+    # fields copied for parity with the JAX config, with no meaning in the port
+    clouds = [TCloud(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool),
+                     torch.zeros(8, dtype=torch.int32), torch.zeros(8))] * 4
+    with pytest.raises(NotImplementedError, match=field):
+        todo.odometry_solve(*clouds, torch.zeros(6), TOdo(**{field: value}))
+
+
 def test_unported_options_raise():
     prev, cur = _features(np.eye(4, dtype=np.float32))
     tc = lambda c: bridge.cloud(c, "cpu")
