@@ -1,31 +1,50 @@
-"""Drive the PyTorch/H100 port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/H100 port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-The main path is the headline workload of ``bench.py``, ported: a VLP-16-like
-sweep pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
+Two paths run, each through the entry points a user calls.
+
+Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
+pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
 feature extraction, clouds compacted to a multiple of 256 points, and
 ``batch_odometry_solve`` of B = 512 independent problems against one shared
 reference pair, each lane from its own initial guess ``0.02 * randn(6)``,
-with the default ``OdometryConfig``.  Everything runs on the card.
+with the default ``OdometryConfig``.
+
+Scan-to-map: the problem of ``benchmarks/bench_scan_match.py``, ported: a
+surround map aggregated from 6 sweeps around the start pose in
+``make_room_world(seed=7)`` and voxel-filtered (0.2 / 0.4 m), the frame of
+the next sweep through ``prepare_frame``, all compacted to 256-point
+granules, and ``batch_scan_match`` of B = 64 frames against the one shared
+map (10 GN iterations, 5-NN line and plane fits, the score gate), default
+``ScanMatchConfig``, priors ``0.02 * randn(6)``.  Everything runs on the card.
 
 Phases, each announced on its own line as it starts:
 
 1. the card's name and power limit;
 2. the kernels' build (one nvcc call), with its seconds and ptxas report;
-3. every race kernel against its plain PyTorch version at the main path's
-   shapes: indices equal for every query inside the 25 m^2 gate (a true tie,
-   distances within 1e-5 relative, is counted and must stay under 0.1% of
-   queries), distances within 1e-4 relative; kernel, plain and library
-   times;
-4. the main path once with every launch counter at 0, then: all lanes
+3. every race kernel against its plain PyTorch version at the odometry
+   path's shapes: indices equal for every query inside the 25 m^2 gate (a
+   true tie, distances within 1e-5 relative, is counted and must stay under
+   0.1% of queries), distances within 1e-4 relative; kernel, plain and
+   library times;
+4. the odometry path once with every launch counter at 0, then: all lanes
    finite, four lanes equal to a CPU run of the same solve (plain versions)
-   within 2e-3, every kernel launched; then the steady-state solves/s;
+   within 2e-3, every race kernel launched; then the steady-state solves/s;
 5. ground truth: the same solve with ``cv_dewarp=False`` (the s-scaled warp
    model, the configuration of ``tests/test_odometry.py::test_recovers_motion``)
    must put every lane within 0.05 m / 0.01 rad of the simulator's motion.
    The default path's own errors are printed beside it;
-6. a ``kernels`` JSON line, then the result line.
+6. the scan-to-map problem, then the k-NN kernel against ``knn_plain`` at
+   that path's two shapes (surf and corner, shared map), with a per-problem
+   reference, a ragged shape and duplicate points across tiles: indices and
+   distances bit-identical; kernel, plain and library times;
+7. the scan-to-map path once with every launch counter at 0, then: 22 k-NN
+   launches (2 per residual build, 11 builds), every lane finite and
+   ``success``, four lanes equal to a CPU run within 2e-3; score, match
+   fraction and iterations; steady-state solves/s; ``scan_match_local`` on
+   lane 0 against the CPU;
+8. a ``kernels`` JSON line, then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -60,11 +79,31 @@ HBM_BYTES_PER_S = 3.35e12
 # (3 mul, 2 add, 1 scale, 1 sub, 1 add), 1 compare per running minimum, and
 # the ring tests ("adj": sub, 2 compares; "same": 1 compare).  The selects
 # that keep (min, argmin) are left out, so the bound is a floor.
-OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14}
+# The k-NN: 8 for d and 1 compare against the K-th best; the insertions that
+# follow a successful compare are left out.
+OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14, "knn": 9}
+# Scan-to-map path: benchmarks/bench_scan_match.py's problem and batch
+SM_BATCH, SM_WORLD_SEED, SM_MAP_SWEEPS, KNN_K = 64, 7, 6, 5
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def kernels():
+    """Every kernel wrapper of the port, each with its launch counter."""
+    from cooper_mapper_torch.ops import knn, races
+
+    return races.KERNELS + knn.KERNELS
+
+
+def reset_launches():
+    for k in kernels():
+        k.launches = 0
+
+
+def read_launches():
+    return {k.__name__: k.launches for k in kernels()}
 
 
 def fail(msg):
@@ -127,6 +166,14 @@ def tile(cl, b):
     from cooper_mapper_torch.utils.cloud import Cloud
 
     return Cloud(*(t[None].expand((b,) + tuple(t.shape)).contiguous()
+                   for t in (cl.xyz, cl.mask, cl.ring, cl.rel_time)))
+
+
+def to_cpu(cl, n=None):
+    """``cl`` on the CPU; its first ``n`` problems when ``n`` is given."""
+    from cooper_mapper_torch.utils.cloud import Cloud
+
+    return Cloud(*(t[:n].cpu() if n else t.cpu()
                    for t in (cl.xyz, cl.mask, cl.ring, cl.rel_time)))
 
 
@@ -289,30 +336,26 @@ def lane_errors(x, motion):
 def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     from cooper_mapper_torch.config import OdometryConfig
     from cooper_mapper_torch.ops import odometry, races
-    from cooper_mapper_torch.utils.cloud import Cloud
 
     cfg = OdometryConfig()
     B = x0.shape[0]
     log(f"[4] main path: batch_odometry_solve, B={B}, default OdometryConfig")
-    for k in races.KERNELS:
-        k.launches = 0
+    reset_launches()
     x, st = odometry.batch_odometry_solve(sharp, flat, ref_c, ref_s, x0, cfg)
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in races.KERNELS}
+    launches = read_launches()
     n_blocks = -(-cfg.max_iterations // cfg.refresh_every)
-    expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks}
+    expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks, "knn": 0}
     log(f"    launches in the main-path run: {launches} (expected {expected})")
-    if launches != expected or min(launches.values()) <= 0:
+    if launches != expected or min(launches[k.__name__] for k in races.KERNELS) <= 0:
         fail("the main path did not launch every kernel as expected")
     if not torch.isfinite(x).all():
         fail("non-finite lanes")
     log(f"    all {B} lanes finite; converged {int(st.converged.sum())}/{B}; "
         f"iterations used {int(st.iter_used.min())}..{int(st.iter_used.max())}")
 
-    cpu = lambda c, n=None: Cloud(*(t[:n].cpu() if n else t.cpu()
-                                    for t in (c.xyz, c.mask, c.ring, c.rel_time)))
     x_cpu, _ = odometry.batch_odometry_solve(
-        cpu(sharp, CPU_LANES), cpu(flat, CPU_LANES), cpu(ref_c), cpu(ref_s),
+        to_cpu(sharp, CPU_LANES), to_cpu(flat, CPU_LANES), to_cpu(ref_c), to_cpu(ref_s),
         x0[:CPU_LANES].cpu(), cfg)
     dx = float((x[:CPU_LANES].cpu() - x_cpu).abs().max())
     log(f"    lanes 0..{CPU_LANES - 1} vs the CPU plain-version run: max |dx| {dx:.3g} "
@@ -348,6 +391,196 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     return launches, B / best, B / med
 
 
+def scan_match_poses():
+    """benchmarks/bench_scan_match.build_problem's poses as numpy f32 [4, 4]:
+    the frame's start and end poses p0, p1 and the map sweeps' poses, drawn
+    around p0 from RandomState(3) in the same order."""
+    p0 = np.eye(4, dtype=np.float32)
+    p0[1, 3] = 1.5
+    th = 0.02
+    motion = np.array([[np.cos(th), 0, np.sin(th), 0.1], [0, 1, 0, 0],
+                       [-np.sin(th), 0, np.cos(th), 0.3], [0, 0, 0, 1]], np.float32)
+    rng = np.random.RandomState(3)
+    poses = []
+    for _ in range(SM_MAP_SWEEPS):
+        pk = p0.copy()
+        pk[:3, 3] += np.array([rng.uniform(-1.5, 1.5), rng.uniform(-0.2, 0.2),
+                               rng.uniform(-1.5, 1.5)], np.float32)
+        yaw = rng.uniform(-0.4, 0.4)
+        c, s = np.cos(yaw), np.sin(yaw)
+        poses.append(pk @ np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                                    [0, 0, 0, 1]], np.float32))
+    return p0, p0 @ motion, poses
+
+
+def scan_match_clouds(map_feats, map_poses, frame_feats):
+    """The scan-to-map problem from feature clouds, as
+    bench_scan_match.build_problem makes it: the map sweeps' less_sharp /
+    less_flat clouds taken to the world frame, concatenated and voxel-filtered
+    (0.2 / 0.4 m leaves, 8192 / 16384 points); the frame's through
+    ``prepare_frame`` (2048 / 4096 points); all four snug to 256 granules.
+    Returns (corner, surf, ref_corner, ref_surf)."""
+    from cooper_mapper_torch.config import MatcherConfig
+    from cooper_mapper_torch.models import laser_mapping
+    from cooper_mapper_torch.ops.voxel import voxel_downsample
+    from cooper_mapper_torch.utils import cloud
+
+    def world(field, leaf, capacity):
+        parts = [laser_mapping._to_world(getattr(f, field), T)
+                 for f, T in zip(map_feats, map_poses)]
+        cat = cloud.make(torch.cat([p.xyz for p in parts]), torch.cat([p.mask for p in parts]))
+        return voxel_downsample(cat, leaf, capacity)
+
+    corner, surf = laser_mapping.prepare_frame(
+        frame_feats.less_sharp, frame_feats.less_flat,
+        MatcherConfig(max_frame_corner=2048, max_frame_surf=4096))
+    return (snug(corner), snug(surf), snug(world("less_sharp", 0.2, 8192)),
+            snug(world("less_flat", 0.4, 16384)))
+
+
+def make_scan_match_problem(device):
+    """The scan-to-map problem on ``device``, built with the port's own
+    simulator and feature extraction."""
+    from cooper_mapper_torch.config import RegistrationConfig
+    from cooper_mapper_torch.io import sim
+    from cooper_mapper_torch.ops import features
+
+    world = sim.make_room_world(seed=SM_WORLD_SEED, device=device)
+    cfg = RegistrationConfig(n_rings=RINGS, max_points_per_ring=WIDTH)
+    p0, p1, poses = scan_match_poses()
+    T = lambda p: torch.from_numpy(p).to(device)
+    feats = lambda a, b: features.extract_features(
+        sim.scan_sweep(world, T(a), T(b), RINGS, WIDTH), cfg)
+    return scan_match_clouds([feats(p, p) for p in poses], [T(p) for p in poses],
+                             feats(p0, p1))
+
+
+def knn_kernel_phase(corner, surf, ref_c, ref_s, x0):
+    """The k-NN kernel against knn_plain, bit for bit: the scan-to-map path's
+    two searches at the first residual build (frames registered at x0), a
+    per-problem reference, a ragged shape and duplicates across tiles."""
+    from cooper_mapper_torch.ops import knn, races
+    from cooper_mapper_torch.utils import twist
+
+    log("    k-NN kernel vs knn_plain (indices and distances must be bit-identical)")
+    B = x0.shape[0]
+    dev = x0.device
+    qc = twist.point_to_map(x0, corner.xyz)
+    qs = twist.point_to_map(x0, surf.xyz)
+    rng = np.random.RandomState(5)
+    rand = lambda *shape: torch.from_numpy(rng.uniform(-8, 8, shape).astype(np.float32)).to(dev)
+    nb = min(8, B)
+    ref_sb = tile(ref_s, nb)
+    dup_r = torch.tensor([[1.0, 2.0, 3.0]], device=dev).repeat(1300, 1)
+    dup_q = torch.tensor([[1.0, 2.0, 3.0]], device=dev).repeat(2, 130, 1)
+    cases = [
+        ("surf", qs, ref_s.xyz, ref_s.mask),
+        ("corner", qc, ref_c.xyz, ref_c.mask),
+        ("surf per-problem ref", qs[:nb].contiguous(), ref_sb.xyz, ref_sb.mask),
+        ("ragged Q=333 M=1000", rand(3, 333, 3), rand(1000, 3),
+         torch.from_numpy(rng.rand(1000) > 0.1).to(dev)),
+        ("duplicates across tiles", dup_q, dup_r, torch.ones(1300, dtype=torch.bool, device=dev)),
+    ]
+    err = 0.0
+    for label, q, r, m in cases:
+        ik, dk = knn.knn(q, r, m, KNN_K)
+        ip, dp = knn.knn_plain(q, r, m, KNN_K)
+        torch.cuda.synchronize()
+        n_bad = int((ik != ip).sum())
+        d_err = float((dk - dp).abs().max())
+        log(f"    knn {label} {tuple(q.shape)} vs {tuple(r.shape)}: index mismatches {n_bad}, "
+            f"max |dd| {d_err:.3g}, 5th-NN inside the 5 m^2 gate "
+            f"{float((dp[..., -1] < 5.0).float().mean()):.3f}")
+        if n_bad or not torch.equal(dk, dp):
+            fail(f"knn {label} disagrees with knn_plain")
+        if label.startswith("duplicates") and not (
+                ik == torch.arange(KNN_K, device=dev, dtype=torch.int32)).all():
+            fail("knn duplicates: expected indices 0..4, the smaller index first")
+        err = max(err, d_err)
+
+    log("    times (CUDA events; wrapper calls; plain = knn_plain on the card; "
+        "library = torch.cdist(...).square_().masked_fill_(...).topk(5))")
+    big = torch.tensor(races.BIG, device=dev)
+    out = {}
+    for tag, q, ref in (("surf", qs, ref_s), ("corner", qc, ref_c)):
+        M = ref.xyz.shape[0]
+        Q = q.shape[1]
+        rexp = ref.xyz[None].expand(B, M, 3)
+        inval = ~ref.mask
+        ms = time_ms(lambda: knn.knn(q, ref.xyz, ref.mask, KNN_K), reps=20)
+        plain_ms = time_ms(lambda: knn.knn_plain(q, ref.xyz, ref.mask, KNN_K), reps=3, warmup=1)
+        library_ms = time_ms(lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big)
+                             .topk(KNN_K, largest=False), reps=3, warmup=1)
+        pairs = B * Q * M
+        t_ops = pairs * OPS_PER_PAIR["knn"] / FP32_PEAK_OPS * 1e3
+        t_bytes = (B * Q * 12 + M * 16 + B * Q * KNN_K * 8) / HBM_BYTES_PER_S * 1e3
+        out[tag] = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms,
+                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                        bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"    knn {tag} [{B}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+            f"bound {out[tag]['bound_ms']:.4f} ms ({out[tag]['bound_by']})")
+    return out
+
+
+def scan_match_phase(corner, surf, ref_c, ref_s, x0):
+    from cooper_mapper_torch.config import ScanMatchConfig
+    from cooper_mapper_torch.ops import scan_match as sm
+
+    cfg = ScanMatchConfig()
+    B = x0.shape[0]
+    log(f"[7] scan-to-map path: batch_scan_match, B={B}, default ScanMatchConfig, shared map")
+    corner_b, surf_b = tile(corner, B), tile(surf, B)
+    reset_launches()
+    res = sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, x0, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "knn": 2 * (cfg.max_iterations + 1)}
+    log(f"    launches in the scan-to-map run: {launches} (expected {expected})")
+    if launches != expected:
+        fail("the scan-to-map path did not launch the k-NN kernel as expected")
+    if not torch.isfinite(res.x).all():
+        fail("non-finite scan-to-map lanes")
+    if not bool(res.success.all()):
+        fail(f"scan-to-map lanes without success: {int((~res.success).sum())} of {B}")
+    rng_of = lambda t: f"{float(t.min()):.6g}..{float(t.max()):.6g}"
+    log(f"    all {B} lanes finite and success; score {rng_of(res.score)}, match fraction "
+        f"{rng_of(res.match_fraction)}, iterations used {rng_of(res.iter_used)}, "
+        f"degenerate {int(res.is_degenerate.sum())}")
+
+    res_cpu = sm.batch_scan_match(to_cpu(corner_b, CPU_LANES), to_cpu(surf_b, CPU_LANES),
+                                  to_cpu(ref_c), to_cpu(ref_s), x0[:CPU_LANES].cpu(), cfg)
+    dx = float((res.x[:CPU_LANES].cpu() - res_cpu.x).abs().max())
+    log(f"    lanes 0..{CPU_LANES - 1} vs the CPU plain-version run: max |dx| {dx:.3g} "
+        f"(tolerance {CPU_TOL}); CPU success {res_cpu.success.tolist()}")
+    if not (dx <= CPU_TOL and bool(res_cpu.success.all())):
+        fail("card and CPU scan-to-map solves disagree")
+
+    rng = np.random.RandomState(1)
+    dts = []
+    for _ in range(5):
+        xr = torch.from_numpy((0.02 * rng.randn(B, 6)).astype(np.float32)).to(x0.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, xr, cfg)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    best, med = min(dts), float(np.median(dts))
+    log(f"    steady state: {B / best:.1f} solves/s best, {B / med:.1f} median "
+        f"({best * 1e3:.1f} / {med * 1e3:.1f} ms per batch; runs {[round(d * 1e3, 1) for d in dts]})")
+
+    loc = sm.scan_match_local(corner, surf, ref_c, ref_s, x0[0], cfg)
+    loc_cpu = sm.scan_match_local(to_cpu(corner), to_cpu(surf), to_cpu(ref_c), to_cpu(ref_s),
+                                  x0[0].cpu(), cfg)
+    dx = float((loc.x.cpu() - loc_cpu.x).abs().max())
+    log(f"    scan_match_local lane 0: success {bool(loc.success)} (CPU {bool(loc_cpu.success)}), "
+        f"max |dx| vs CPU {dx:.3g}")
+    if not (torch.isfinite(loc.x).all() and dx <= CPU_TOL
+            and bool(loc.success) == bool(loc_cpu.success)):
+        fail("scan_match_local on the card disagrees with the CPU")
+    return launches, B / best, B / med
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -367,20 +600,33 @@ def main():
     kern = kernel_phase(sharp, flat, ref_c, ref_s, x0)
     launches, sps_best, sps_med = solve_phase(sharp, flat, ref_c, ref_s, x0, motion)
 
-    sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "nn1_pallas / _nn1_kernel"),
-               "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173",
-                              "nn1_masked_pallas / _nn1_masked_kernel"),
-               "bc_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:301",
-                            "bc_races_pallas / _bc_races_kernel")}
+    log("[6] scan-to-map problem (bench_scan_match.build_problem, ported) on the card")
+    corner, surf, map_c, map_s = make_scan_match_problem(device)
+    log(f"    frame corner {tuple(corner.xyz.shape)} ({int(corner.mask.sum())} valid), "
+        f"surf {tuple(surf.xyz.shape)} ({int(surf.mask.sum())}); map corner "
+        f"{tuple(map_c.xyz.shape)} ({int(map_c.mask.sum())}), surf {tuple(map_s.xyz.shape)} "
+        f"({int(map_s.mask.sum())})")
+    x0_sm = torch.from_numpy((0.02 * np.random.RandomState(0).randn(SM_BATCH, 6))
+                             .astype(np.float32)).to(device)
+    knn_rows = knn_kernel_phase(corner, surf, map_c, map_s, x0_sm)
+    sm_launches, sm_best, sm_med = scan_match_phase(corner, surf, map_c, map_s, x0_sm)
+    launches["knn"] = sm_launches["knn"]
+    kern["knn"] = knn_rows["surf"]
+
+    sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
+               "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
+               "bc_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:301", "races.cu"),
+               "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
     rows = [{
-        "name": k, "route": "cuda", "source": "cooper_mapper_torch/csrc/races.cu",
+        "name": k, "route": "cuda", "source": f"cooper_mapper_torch/csrc/{sources[k][1]}",
         "replaces": sources[k][0], "launches": launches[k],
         "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
         "library_ms": v["library_ms"], "shape": v["shape"],
     } for k, v in kern.items()]
-    log(f"[6] summary: build {build_s:.2f} s, {sps_best:.1f} solves/s best "
-        f"({sps_med:.1f} median) at B={BATCH} on {name} ({smi})")
+    log(f"[8] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+        f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
+        f"({sm_med:.1f} median) at B={SM_BATCH}; on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

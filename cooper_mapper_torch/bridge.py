@@ -1,14 +1,19 @@
-"""numpy -> port state: builds the port's ``Cloud``, ``Sweep`` and
-``FeatureClouds`` from numpy arrays whose field names are the JAX package's.
+"""numpy <-> port state: builds the port's ``Cloud``, ``Sweep`` and
+``FeatureClouds`` from numpy arrays whose field names are the JAX package's,
+and turns results back into numpy.
 
 There are no weights in this system; what crosses between the packages is
-state.  ``from_numpy`` takes any object with the right attributes (a JAX
+state (clouds in, results out).  ``cloud``, ``sweep`` and
+``feature_clouds`` take any object with the right attributes (a JAX
 ``Cloud``/``Sweep``/``FeatureClouds`` or a namespace of numpy arrays) and
-copies each field through ``np.asarray``, so the caller never hands a JAX
-array to torch.
+copy each field through ``np.array``, so the caller never hands a JAX array
+to torch.  ``to_numpy`` reads a result dataclass of either package (e.g.
+``ScanMatchResult``) field by field.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -39,3 +44,13 @@ def sweep(s, device="cuda") -> Sweep:
 def feature_clouds(fc, device="cuda") -> FeatureClouds:
     return FeatureClouds(*(cloud(getattr(fc, f), device)
                            for f in ("sharp", "less_sharp", "flat", "less_flat")))
+
+
+def to_numpy(result) -> dict:
+    """Every field of a result dataclass, the port's or the JAX package's,
+    as a numpy array keyed by field name."""
+    out = {}
+    for f in dataclasses.fields(result):
+        v = getattr(result, f.name)
+        out[f.name] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return out

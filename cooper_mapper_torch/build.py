@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into
-``_build/libcooper_races.so``, a shared library with a plain C interface
+``_build/libcooper_kernels.so``, a shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds, not minutes), which
 ``ctypes`` loads.  The build runs at first use, under a file lock, and again
 whenever the sources' hash changes.  ``_build/`` is git-ignored.
@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_NAME = "libcooper_races.so"
+LIB_NAME = "libcooper_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -101,7 +101,9 @@ def library() -> ctypes.CDLL:
         lib.cooper_nn1.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
         lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
-        for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races):
+        lib.cooper_knn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+        for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
+                   lib.cooper_knn):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

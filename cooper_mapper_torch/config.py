@@ -1,14 +1,15 @@
-"""Configuration dataclasses of the ported slice.
+"""Configuration dataclasses of the ported slices.
 
-Field-for-field copies of ``RegistrationConfig`` and ``OdometryConfig`` in
-``cooper_mapper_tpu/config.py`` (tests/test_torch_config.py holds them
-together).  The port keeps its own copy because it must import nothing of
-the JAX package.  ``nn_query_chunk``, ``kernel_backend``, ``nn_precision``
-and ``unroll_iters`` are carried for field parity only, and the solve
-raises unless they keep their defaults: the port's dispatch follows the
-tensors' device (a CUDA tensor launches the race kernels, a CPU tensor runs
-their plain versions), its products are always full f32, and its GN loop
-is a Python loop.
+Field-for-field copies of ``RegistrationConfig``, ``OdometryConfig``,
+``ScanMatchConfig`` and ``MatcherConfig`` in ``cooper_mapper_tpu/config.py``
+(tests/test_torch_config.py holds them together).  The port keeps its own
+copy because it must import nothing of the JAX package.
+``OdometryConfig``'s ``nn_query_chunk``, ``kernel_backend``,
+``nn_precision`` and ``unroll_iters`` and ``ScanMatchConfig.kernel_backend``
+are carried for field parity only, and the solves raise unless they keep
+their defaults: the port's dispatch follows the tensors' device (a CUDA
+tensor launches the kernels, a CPU tensor runs their plain versions), its
+products are always full f32, and its GN loops are Python loops.
 """
 
 from __future__ import annotations
@@ -68,3 +69,44 @@ class OdometryConfig:
     unroll_iters: bool = False
     cv_dewarp: bool = True
     dewarp_passes: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanMatchConfig:
+    """Scan-to-map solver (ScanMatch.cpp)."""
+
+    max_iterations: int = 10
+    delta_r_abort: float = 0.05
+    delta_t_abort: float = 0.05
+    knn: int = 5
+    nn_sq_dist_max: float = 5.0       # 5th-NN gate (ScanMatch.cpp:102)
+    plane_max_dist: float = 0.2       # findPlane inlier check (:122)
+    line_eig_ratio: float = 5.0       # findLine lambda2 > 5*lambda1 (feature_utils.h:145)
+    weight_slope: float = 0.9         # map-variant robust weight (feature_utils.h:70,102)
+    weight_min: float = 0.1
+    eig_threshold: float = 100.0      # degeneracy (:223)
+    min_matched: int = 50
+    use_score: bool = True
+    score_threshold: float = 800.0    # (:24)
+    match_percentage_threshold: float = 0.4
+    # scanMatchLocal downsample leaves (:29-30)
+    local_corner_leaf: float = 0.2
+    local_surf_leaf: float = 0.4
+    # Marquardt-scaled diagonal damping: solve (JtJ + lam*diag(JtJ)) dx = Jtb;
+    # 0 = pure GN (the reference's dynamics, ScanMatch.cpp:196-201)
+    lm_damping: float = 0.0
+    kernel_backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherConfig:
+    """LaserMatcher shared knobs (LaserMatcher.cpp:45-170)."""
+
+    corner_leaf: float = 0.2     # prepareFeatureFrame voxel leaves (:288-301)
+    surf_leaf: float = 0.4
+    dynamic_mode: bool = False
+    map_directory: str = "/tmp/cooper_dynamic_map"  # cube PCD store for dynamic_mode
+    max_frame_corner: int = 4096   # downsampled incoming stack capacities
+    max_frame_surf: int = 8192
+    dedup_stride: int = 4
+    commit_rejected_solves: bool = False

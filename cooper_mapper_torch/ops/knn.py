@@ -1,0 +1,106 @@
+"""Streaming k-nearest-neighbour search of the scan-to-map solve
+(port of ``cooper_mapper_tpu/ops/pallas/knn_stream.py``).
+
+``knn`` finds, for every query, the k reference points with the smallest
+``(|q|^2 - 2 q.r) + |r|^2``, ascending by (distance, index): ties go to the
+smaller index, as with ``jax.lax.top_k`` and the TPU kernel.  An invalid
+reference point carries ``|r|^2 = BIG``, so it enters a list only when fewer
+than k valid points exist, and then with a distance of about ``BIG`` that
+no acceptance gate passes.
+
+Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask
+``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``); ``M >= k``.  Outputs are
+``[B, Q, k]``: int32 indices in ``[0, M)`` and f32 squared distances.
+
+Dispatch follows the device: a CPU tensor runs ``knn_plain``, a CUDA tensor
+launches the kernel (``csrc/knn.cu``, k = 5) or raises.  Kernel and plain
+version evaluate the distance with the same f32 operations in the same order
+(``races.pairwise_sq_dist``), so they agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import races
+
+# Elements of one distance chunk of the plain version ([b, q, M] f32, plus
+# the sort's values and int64 indices): ~256 MB at 2^24.
+_PLAIN_CHUNK_ELEMS = 1 << 24
+
+
+def _check_knn(q, r_xyz, r_mask, k: int):
+    """Validate a search's inputs; returns (B, Q, M, shared_reference)."""
+    B, Q, M, shared = races._check_race(q, r_xyz, r_mask)
+    if not 1 <= k <= M:
+        raise ValueError(f"k-NN needs 1 <= k <= M, got k={k}, M={M}")
+    return B, Q, M, shared
+
+
+def _chunks(B, Q, M, shared):
+    """(batch slice, query slice) pairs covering [B, Q], each with at most
+    ~_PLAIN_CHUNK_ELEMS distances.  A shared reference lets one chunk span
+    several problems; a per-problem one is cut per problem."""
+    per_q = max(1, _PLAIN_CHUNK_ELEMS // M)
+    if per_q >= Q:
+        step = max(1, per_q // Q) if shared else 1
+        return [(slice(s, min(B, s + step)), slice(0, Q)) for s in range(0, B, step)]
+    return [(slice(b, b + 1), slice(s, min(Q, s + per_q)))
+            for b in range(B) for s in range(0, Q, per_q)]
+
+
+def _first_k(d, k: int):
+    """The first k entries of each row of ``d`` [..., M] in (value, index)
+    order: the first k columns of a stable sort.
+
+    ``torch.topk`` does not promise the smaller index among equal values, so
+    it only answers the rows where no tie can matter: k distinct values and
+    nothing else equal to the k-th, where the k-set and its order are unique.
+    Every other row is sorted with ``torch.sort(..., stable=True)``.
+    """
+    v, i = torch.topk(d, k, dim=-1, largest=False, sorted=True)
+    tied = ((d <= v[..., -1:]).sum(-1) > k) | (v[..., 1:] == v[..., :-1]).any(-1)
+    if bool(tied.any()):
+        sv, si = torch.sort(d[tied], dim=-1, stable=True)
+        v[tied], i[tied] = sv[:, :k], si[:, :k]
+    return i.to(torch.int32), v
+
+
+def knn_plain(q, r_xyz, r_mask, k: int = 5):
+    """k-NN, plain PyTorch: (idx [B, Q, k] int32, sq_dist [B, Q, k] f32).
+
+    Builds the distance tile in chunks and keeps the first k of each row in
+    (distance, index) order (``_first_k``).
+    """
+    B, Q, M, shared = _check_knn(q, r_xyz, r_mask, k)
+    rn = races._ref_norms(r_xyz, r_mask)
+    idx = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
+    dist = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
+    for bs, qs in _chunks(B, Q, M, shared):
+        r, n = (r_xyz, rn) if shared else (r_xyz[bs], rn[bs])
+        idx[bs, qs], dist[bs, qs] = _first_k(races.pairwise_sq_dist(q[bs, qs], r, n), k)
+    return idx, dist
+
+
+def knn(q, r_xyz, r_mask, k: int = 5):
+    """k-NN: (idx [B, Q, k] int32, sq_dist [B, Q, k] f32), ascending by
+    (distance, index)."""
+    if not races._require_device(q):
+        return knn_plain(q, r_xyz, r_mask, k)
+    from ..build import library
+
+    B, Q, M, shared = _check_knn(q, r_xyz, r_mask, k)
+    if k != 5:
+        raise ValueError(f"the CUDA k-NN kernel is built for k = 5, got k={k}")
+    rn = races._ref_norms(r_xyz, r_mask)
+    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
+    races._launch("knn", q, library().cooper_knn,
+                  q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
+                  out_i.data_ptr(), B, Q, M, 0 if shared else M, k)
+    knn.launches += 1
+    return out_i, out_d
+
+
+knn.launches = 0
+KERNELS = (knn,)

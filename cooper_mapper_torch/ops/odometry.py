@@ -85,6 +85,16 @@ def _exact_jacobian_rows_rigid(x, pts, coeff_dir):
                                                coeff_dir), coeff_dir)
 
 
+def _reference_jacobian_rows(x, points, coeff_dir):
+    """The reference's closed-form Jacobian rows at s = 1
+    (LaserOdometry.cpp:557-575, ScanMatch.cpp:185-195), the corrected arz row:
+    the exact ``d(coeff . (Rz Ry Rx p + t))/dx``, which is
+    ``_exact_jacobian_rows_rigid``.  x [B, 6], points [B, N, 3] -> [B, N, 6].
+    The JAX package's ``port_typo`` variant belongs to the parity mode,
+    which is not ported."""
+    return _exact_jacobian_rows_rigid(x, points, coeff_dir)
+
+
 def _warp(x, c: Cloud, rigid: bool):
     if rigid:
         return twist.point_to_map(x, c.xyz)

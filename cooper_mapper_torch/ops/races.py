@@ -102,15 +102,17 @@ def pairwise_sq_dist(q, r, rn):
 
     Written elementwise, so every product and sum is one IEEE f32 operation
     in a fixed order (no TF32, no FMA contraction): the CUDA kernels repeat
-    exactly these operations.
+    exactly these operations.  The tile is updated in place to save memory
+    passes; ``(-2*cross) + |q|^2`` is ``|q|^2 - 2*cross`` bit for bit.
     """
     if r.dim() == 2:
         r, rn = r[None], rn[None]
     qx, qy, qz = (q[..., i, None] for i in range(3))
     rx, ry, rz = (r[..., None, :, i] for i in range(3))
-    cross = qx * rx + qy * ry + qz * rz
-    qn = _sq_norm(q)[..., None]
-    return qn - 2.0 * cross + rn[..., None, :]
+    d = qx * rx
+    d += qy * ry
+    d += qz * rz
+    return d.mul_(-2.0).add_(_sq_norm(q)[..., None]).add_(rn[..., None, :])
 
 
 def _batch_chunks(B, Q, M):

@@ -1,0 +1,185 @@
+"""Scan-to-map Gauss-Newton solve with match-quality gating, batched
+(port of ``cooper_mapper_tpu/ops/scan_match.py``; ScanMatch.cpp:51-398).
+
+Per iteration: register the frame's corner/surf features into the map frame
+at the current pose, find their 5 nearest reference points (``ops/knn.py``),
+fit a PCA line to each corner neighbourhood and an LSQ plane to each surf
+neighbourhood, build masked 6-DoF normal equations with the map-variant
+robust weights and take a GN step (the iteration-0 degeneracy projector,
+eigen threshold 100).  After the loop the residuals are rebuilt at the
+solved pose and the result is gated on the score ``sum(exp(-|d|))`` and the
+matched fraction.
+
+The batch is an explicit leading dimension: frames are ``[B, N, 3]``; the
+reference clouds are shared (xyz ``[M, 3]``, one map matched by every
+frame) or per problem (xyz ``[B, M, 3]``), as in ``batch_odometry_solve``.
+Native mode only: ``parity_mode`` (the LU solve and the reference-mode
+projector) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import ScanMatchConfig
+from ..utils import twist
+from ..utils.cloud import Cloud
+from . import gauss_newton as gn
+from . import neighbors, residuals
+from .odometry import _reference_jacobian_rows
+from .voxel import voxel_downsample
+
+
+@dataclasses.dataclass
+class ScanMatchResult:
+    x: torch.Tensor               # [..., 6] refined pose (TZYX twist)
+    success: torch.Tensor         # [...] bool: converged, passed the score gate, enough_ref
+    converged: torch.Tensor       # [...] bool
+    score: torch.Tensor           # [...] sum(exp(-|weighted residual|))
+    match_fraction: torch.Tensor  # [...] geometric fits found / valid frame points
+    n_matched: torch.Tensor       # [...] residuals in the last GN step
+    is_degenerate: torch.Tensor   # [...] bool
+    iter_used: torch.Tensor       # [...] int32
+    enough_ref: torch.Tensor      # [...] bool: the reference clouds met the size floor
+
+
+def _neighbour_planes(ref_xyz, idx, shared: bool):
+    """Neighbour coordinates as per-axis lists of K [B, N] component planes.
+    One gather of the [B, N*K, 3] neighbour points, then views."""
+    B, N, K = idx.shape
+    nb = neighbors.take_ref(ref_xyz, idx.reshape(B, N * K), shared).reshape(B, N, K, 3)
+    return tuple([nb[..., j, ax] for j in range(K)] for ax in range(3))
+
+
+def _build_residuals(x, corner: Cloud, surf: Cloud, ref_corner: Cloud,
+                     ref_surf: Cloud, cfg: ScanMatchConfig):
+    """One correspondence + residual build at poses x [B, 6].
+
+    Returns (J [B, Nc+Ns, 6], b, ok, found), the last three [B, Nc+Ns]:
+    ``ok`` gates the normal equations, ``found`` (the geometric fit alone,
+    ScanMatch.cpp:111,129) counts matches.
+    """
+    pc = twist.point_to_map(x, corner.xyz)
+    ps = twist.point_to_map(x, surf.xyz)
+
+    idx_c, d_c = neighbors.knn_search(pc, ref_corner.xyz, ref_corner.mask, cfg.knn)
+    idx_s, d_s = neighbors.knn_search(ps, ref_surf.xyz, ref_surf.mask, cfg.knn)
+
+    gate_c = (d_c[..., -1] < cfg.nn_sq_dist_max) & corner.mask
+    gate_s = (d_s[..., -1] < cfg.nn_sq_dist_max) & surf.mask
+
+    cx, cy, cz = _neighbour_planes(ref_corner.xyz, idx_c, ref_corner.xyz.dim() == 2)
+    A, B, line_ok = residuals.fit_line_planes(cx, cy, cz, gate_c, cfg.line_eig_ratio)
+    dir_c, res_c, w_ok_c = residuals.corner_coeff_map(A, B, pc, cfg.weight_slope,
+                                                      cfg.weight_min)
+    ok_c = line_ok & w_ok_c & gate_c
+
+    sx, sy, sz = _neighbour_planes(ref_surf.xyz, idx_s, ref_surf.xyz.dim() == 2)
+    plane, plane_ok = residuals.fit_plane_planes(sx, sy, sz, gate_s, cfg.plane_max_dist)
+    dir_s, res_s, w_ok_s = residuals.surf_coeff_map(plane, ps, cfg.weight_slope,
+                                                    cfg.weight_min)
+    ok_s = plane_ok & w_ok_s & gate_s
+
+    J_c = _reference_jacobian_rows(x, corner.xyz, dir_c)
+    J_s = _reference_jacobian_rows(x, surf.xyz, dir_s)
+    J = torch.cat([J_c, J_s], dim=-2)
+    b = torch.cat([-res_c, -res_s], dim=-1)
+    ok = torch.cat([ok_c, ok_s], dim=-1)
+    found = torch.cat([line_ok & gate_c, plane_ok & gate_s], dim=-1)
+    return J, b, ok, found
+
+
+def _check_supported(cfg: ScanMatchConfig, parity_mode: bool):
+    if parity_mode:
+        raise NotImplementedError(
+            "scan-to-map parity_mode needs the LU solve and the reference-mode "
+            "projector, which are not ported yet")
+    if cfg.kernel_backend != ScanMatchConfig.kernel_backend:
+        raise NotImplementedError(
+            "ScanMatchConfig.kernel_backend is carried for parity only; keep it at "
+            f"{ScanMatchConfig.kernel_backend!r}")
+
+
+def batch_scan_match(corner: Cloud, surf: Cloud, ref_corner: Cloud, ref_surf: Cloud,
+                     x0, cfg: ScanMatchConfig = ScanMatchConfig(), chunk: int = 512,
+                     parity_mode: bool = False) -> ScanMatchResult:
+    """Refine B world poses against reference feature clouds.
+
+    corner/surf: frame clouds with xyz [B, N, 3]; ref_corner/ref_surf: shared
+    (xyz [M, 3]) or per problem (xyz [B, M, 3]); x0: [B, 6] TZYX twists.
+    Runs on the tensors' device.  ``chunk`` is the JAX package's query-chunk
+    memory knob: accepted for signature parity, it changes nothing.
+    Every lane runs ``max_iterations`` steps; a converged lane keeps its state.
+    """
+    _check_supported(cfg, parity_mode)
+    n_batch = x0.shape[0]
+    enough_ref = ((ref_corner.mask.sum(-1) >= 50) & (ref_surf.mask.sum(-1) >= 100)
+                  ).expand(n_batch)
+
+    def step(st, it, compute_projector=False):
+        J, b, ok, _ = _build_residuals(st.x, corner, surf, ref_corner, ref_surf, cfg)
+        JtJ, Jtb, n_valid = gn.assemble_normal_eqs(J, b, ok)
+        return gn.gn_step(
+            st, JtJ, Jtb, torch.where(enough_ref, n_valid, 0.0), it,
+            cfg.eig_threshold, cfg.delta_r_abort, cfg.delta_t_abort, cfg.min_matched,
+            compute_projector=compute_projector, lm_damping=cfg.lm_damping,
+        )
+
+    # iteration 0 peeled: the degeneracy eigendecomposition runs once
+    st = step(gn.gn_init(x0), 0, compute_projector=True)
+    for it in range(1, cfg.max_iterations):
+        st = step(st, it)
+
+    # score gate at the solved pose (ScanMatch.cpp:263-341); the reference
+    # scores the last pre-update build, which differs by one sub-threshold step
+    _, b, ok, found = _build_residuals(st.x, corner, surf, ref_corner, ref_surf, cfg)
+    score = torch.sum(torch.where(ok, torch.exp(-torch.abs(b)), 0.0), dim=-1)
+    total = corner.mask.sum(-1) + surf.mask.sum(-1)
+    match_fraction = found.sum(-1).float() / torch.clamp(total, min=1).float()
+    if cfg.use_score:
+        gated = (score >= cfg.score_threshold) & (
+            match_fraction >= cfg.match_percentage_threshold)
+    else:
+        gated = torch.ones_like(st.converged)
+    return ScanMatchResult(
+        x=st.x,
+        success=st.converged & gated & enough_ref,
+        converged=st.converged,
+        score=score,
+        match_fraction=match_fraction,
+        n_matched=st.n_matched,
+        is_degenerate=st.is_degenerate,
+        iter_used=st.iter_used,
+        enough_ref=enough_ref,
+    )
+
+
+def _add_batch(c: Cloud) -> Cloud:
+    return Cloud(c.xyz[None], c.mask[None], c.ring[None], c.rel_time[None])
+
+
+def scan_match(corner: Cloud, surf: Cloud, ref_corner: Cloud, ref_surf: Cloud, x0,
+               cfg: ScanMatchConfig = ScanMatchConfig(), chunk: int = 512,
+               parity_mode: bool = False) -> ScanMatchResult:
+    """One problem: clouds without a batch dimension, x0 [6].  Result fields
+    carry no batch dimension."""
+    res = batch_scan_match(_add_batch(corner), _add_batch(surf), ref_corner, ref_surf,
+                           x0[None], cfg, chunk, parity_mode)
+    return ScanMatchResult(*(getattr(res, f.name)[0]
+                             for f in dataclasses.fields(ScanMatchResult)))
+
+
+def scan_match_local(corner: Cloud, surf: Cloud, ref_corner: Cloud, ref_surf: Cloud,
+                     x0, cfg: ScanMatchConfig = ScanMatchConfig(),
+                     chunk: int = 512) -> ScanMatchResult:
+    """scanMatchLocal (ScanMatch.cpp:375-398) for one problem: voxel-downsample
+    both sides (corner 0.2 m / surf 0.4 m leaves), then ``scan_match``."""
+    return scan_match(
+        voxel_downsample(corner, cfg.local_corner_leaf),
+        voxel_downsample(surf, cfg.local_surf_leaf),
+        voxel_downsample(ref_corner, cfg.local_corner_leaf),
+        voxel_downsample(ref_surf, cfg.local_surf_leaf),
+        x0, cfg, chunk,
+    )

@@ -1,5 +1,5 @@
 """SE(3) / Euler-convention math: the part of ``cooper_mapper_tpu/utils/se3.py``
-that the twist warps and the simulator use.
+that the twist warps, the simulator and the mapping front end use.
 
 Conventions are the JAX package's: ``TZYX`` poses ``p' = Rz Ry Rx p + t``,
 Euler 6-vectors ``[rx, ry, rz, tx, ty, tz]``, twists ``[v, w]`` (translation
@@ -76,6 +76,15 @@ def inverse(T):
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
     return make_mat(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def apply(T, p):
+    """Apply (...,4,4) to points (..., N, 3) or (..., 3)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    if p.dim() >= 2:
+        return p @ R.transpose(-1, -2) + t[..., None, :]
+    return (R @ p[..., None])[..., 0] + t
 
 
 def skew(v):

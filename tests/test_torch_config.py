@@ -11,7 +11,8 @@ from cooper_mapper_tpu import config as jax_config  # noqa: E402
 from cooper_mapper_torch import config as torch_config  # noqa: E402
 
 
-@pytest.mark.parametrize("name", ["RegistrationConfig", "OdometryConfig"])
+@pytest.mark.parametrize("name", ["RegistrationConfig", "OdometryConfig",
+                                  "ScanMatchConfig", "MatcherConfig"])
 def test_config_fields_match(name):
     ref = dataclasses.fields(getattr(jax_config, name))
     port = dataclasses.fields(getattr(torch_config, name))

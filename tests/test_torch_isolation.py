@@ -67,5 +67,5 @@ def test_module_list_covers_the_slice():
     for mod in ("config", "bridge", "build", "utils.se3", "utils.twist",
                 "utils.cloud", "io.sim", "ops.eig3", "ops.voxel", "ops.features",
                 "ops.neighbors", "ops.races", "ops.residuals", "ops.gauss_newton",
-                "ops.odometry"):
+                "ops.odometry", "ops.knn", "ops.scan_match", "models.laser_mapping"):
         assert f"cooper_mapper_torch.{mod}" in names

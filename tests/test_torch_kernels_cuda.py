@@ -1,4 +1,4 @@
-"""The CUDA race kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels (races, k-NN) against their plain PyTorch versions, on a card.
 
 These tests need an NVIDIA card and skip without one.  The file imports no
 JAX, so it also runs on a machine that has none:
@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from cooper_mapper_torch.ops import races  # noqa: E402
+from cooper_mapper_torch.ops import knn, races  # noqa: E402
 from cooper_mapper_torch.ops.neighbors import take_ref  # noqa: E402
 
 R, SPAN = 16, 2.5
@@ -80,3 +80,41 @@ def test_ties_and_self_exclusion_on_card(cuda):
     assert int(ia[0, 0]) == 0 and int(ib[0, 0]) == 1 and float(db[0, 0]) < 1e-6
     bb, bdb, _, _ = races.bc_races(q, ring[ia.long()], ia, xyz, ring, mask)
     assert int(bb[0, 0]) == 1 and float(bdb[0, 0]) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("Q,M", [(256, 512), (100, 1000), (333, 5), (2048, 5888)])
+def test_knn_kernel_equals_plain_version(cuda, per_problem, Q, M):
+    # ragged Q (not a multiple of the 128-query block) and M (not a multiple
+    # of the 512-point tile), M == k, and the scan-to-map surf shape
+    q, xyz, _, mask = _problem(12, 3, Q, M, per_problem, cuda)
+    before = knn.knn.launches
+    got = knn.knn(q, xyz, mask)
+    want = knn.knn_plain(q, xyz, mask)
+    torch.cuda.synchronize()
+    assert knn.knn.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].min()) >= 0 and int(got[0].max()) < M
+
+
+@pytest.mark.cuda
+def test_knn_ties_and_sparse_reference_on_card(cuda):
+    # tests/test_knn_stream.py's duplicates across tiles: equal distances
+    # list the smaller index first
+    q = torch.tensor([[1.0, 2.0, 3.0]], device=cuda).repeat(130, 1)[None].contiguous()
+    r = torch.tensor([[1.0, 2.0, 3.0]], device=cuda).repeat(1300, 1)
+    idx, d = knn.knn(q, r, torch.ones(1300, dtype=torch.bool, device=cuda))
+    assert (idx == torch.arange(5, device=cuda, dtype=torch.int32)).all()
+    assert float(d.abs().max()) < 1e-5
+    # fewer valid points than k: the valid ones first, every index in range
+    mask = torch.zeros(1300, dtype=torch.bool, device=cuda)
+    mask[[7, 700]] = True
+    r2 = r.clone()
+    r2[700] += 1.0
+    idx, d = knn.knn(q, r2, mask)
+    assert idx[0, 0, :2].tolist() == [7, 700] and float(d[..., 2:].min()) >= 1e11
+    assert int(idx.min()) >= 0 and int(idx.max()) < 1300
+    assert all(torch.equal(a, b) for a, b in zip((idx, d), knn.knn_plain(q, r2, mask)))
+    with pytest.raises(ValueError):
+        knn.knn(q, r[:4].contiguous(), mask[:4].contiguous())
