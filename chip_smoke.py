@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Two paths run, each through the entry points a user calls.
+Three paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -18,6 +18,13 @@ the next sweep through ``prepare_frame``, all compacted to 256-point
 granules, and ``batch_scan_match`` of B = 64 frames against the one shared
 map (10 GN iterations, 5-NN line and plane fits, the score gate), default
 ``ScanMatchConfig``, priors ``0.02 * randn(6)``.  Everything runs on the card.
+
+Single stream: the drive of ``benchmarks/bench_realtime.py``, ported: 14
+VLP-16 sweeps (16 x 1024) of a straight drive, 0.35 m per sweep, in a
+30 x 4 x 60 m room with 10 pillars (seed 9), through ``models/fused``
+(``init_sweep``, then ``odometry_sweep`` / ``mapping_sweep`` on every second
+sweep) at the default ``PipelineConfig``: the default capacities and the
+default 21 x 11 x 21 cube map on the card.
 
 Phases, each announced on its own line as it starts:
 
@@ -44,7 +51,36 @@ Phases, each announced on its own line as it starts:
    ``success``, four lanes equal to a CPU run within 2e-3; score, match
    fraction and iterations; steady-state solves/s; ``scan_match_local`` on
    lane 0 against the CPU;
-8. a ``kernels`` JSON line, then the result line.
+8. the fused race kernel against its plain version, bit for bit, at the
+   single-stream shapes (B = 1: 256 vs 2048 corner, 1024 vs 8192 surf, from
+   the drive's first two sweeps) and the odometry bench shapes (B = 512),
+   with a per-problem reference and a ragged M; and against the split
+   kernels (nn1 -> bc_races / nn1_masked "adj") on every query whose race-A
+   winner is valid; the split kernels against their plain versions, bit for
+   bit on every query, at the B = 1 shapes; kernel, plain and library times
+   beside the bound;
+9. the single-stream drive on the split route (the default), with
+   ``COOPER_PALLAS_FUSED=1``, and on the split route again, every launch
+   counter at 0 before each: per odometry sweep 10 + 5 + 5 split race
+   launches and no fused one, or 10 fused and no split one; 22 k-NN
+   launches per mapping sweep; poses bit-identical on both routes and on
+   the repeat; the final position within 0.3 m of the simulator's
+   (tests/test_pipeline.py::TestFusedSteps' bound); a non-empty map; ms per
+   odometry and mapping sweep (best and median of sweeps 3..13) against
+   LOAM's 100 / 1000 ms budgets; the map's bytes on the card;
+10. the k-NN kernel against ``knn_plain``, bit for bit, on a mapping sweep's
+   own searches: sweep 4's prepared frame (1 x 8192 surf, 1 x 2048 corner)
+   registered at the merge guess against the surround (65536 / 32768) of
+   the map that sweeps 0..3 built; kernel, plain and library times beside
+   the bound;
+11. localization on phase 9's map over a second drive 0.8 m to the side, seeded
+   0.3 m / 0.035 rad off (tests/test_localization.py's perturbation): the
+   steady error (mean from the third solve on) below half the seed error,
+   and the map's tensors unchanged;
+12. the card against the CPU at the reduced configuration of
+   tests/test_pipeline.py::TestFusedSteps (16 x 512 sweeps, a 7 x 3 x 7
+   map, 6 sweeps): every pose within 2e-3;
+13. a ``kernels`` JSON line, then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -81,9 +117,19 @@ HBM_BYTES_PER_S = 3.35e12
 # that keep (min, argmin) are left out, so the bound is a floor.
 # The k-NN: 8 for d and 1 compare against the K-th best; the insertions that
 # follow a successful compare are left out.
-OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14, "knn": 9}
+# The fused search does the function's work once per pair: 8 for d, 1 for
+# A's running minimum, then C's ring test and minimum (4) and, for surf, B's
+# (2): 15 (surf) or 13 (corner).  Its kernel computes d twice (two passes),
+# so it issues 23 or 21: the bound below is the function's, not the design's.
+OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14, "knn": 9,
+                "fused_races": 15, "fused_races_corner": 13}
 # Scan-to-map path: benchmarks/bench_scan_match.py's problem and batch
 SM_BATCH, SM_WORLD_SEED, SM_MAP_SWEEPS, KNN_K = 64, 7, 6, 5
+# Single stream: benchmarks/bench_realtime.py's drive and LOAM's budgets
+SS_SWEEPS, SS_STEP_M, SS_WORLD_SEED = 14, 0.35, 9
+BUDGET_MS = {"odometry": 100.0, "mapping": 1000.0}
+GT_TOL = 0.3                   # tests/test_pipeline.py::TestFusedSteps
+LOC_OFFSET_X, LOC_SWEEPS = 0.8, 6
 
 
 def log(msg):
@@ -91,7 +137,8 @@ def log(msg):
 
 
 def kernels():
-    """Every kernel wrapper of the port, each with its launch counter."""
+    """Every kernel wrapper of the port, each with its launch counter:
+    nn1, nn1_masked, bc_races, fused_races, knn."""
     from cooper_mapper_torch.ops import knn, races
 
     return races.KERNELS + knn.KERNELS
@@ -335,7 +382,7 @@ def lane_errors(x, motion):
 
 def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     from cooper_mapper_torch.config import OdometryConfig
-    from cooper_mapper_torch.ops import odometry, races
+    from cooper_mapper_torch.ops import odometry
 
     cfg = OdometryConfig()
     B = x0.shape[0]
@@ -345,9 +392,10 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     torch.cuda.synchronize()
     launches = read_launches()
     n_blocks = -(-cfg.max_iterations // cfg.refresh_every)
-    expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks, "knn": 0}
+    expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks,
+                "fused_races": 0, "knn": 0}
     log(f"    launches in the main-path run: {launches} (expected {expected})")
-    if launches != expected or min(launches[k.__name__] for k in races.KERNELS) <= 0:
+    if launches != expected or min(launches[k] for k in ("nn1", "nn1_masked", "bc_races")) <= 0:
         fail("the main path did not launch every kernel as expected")
     if not torch.isfinite(x).all():
         fail("non-finite lanes")
@@ -459,7 +507,7 @@ def knn_kernel_phase(corner, surf, ref_c, ref_s, x0):
     """The k-NN kernel against knn_plain, bit for bit: the scan-to-map path's
     two searches at the first residual build (frames registered at x0), a
     per-problem reference, a ragged shape and duplicates across tiles."""
-    from cooper_mapper_torch.ops import knn, races
+    from cooper_mapper_torch.ops import knn
     from cooper_mapper_torch.utils import twist
 
     log("    k-NN kernel vs knn_plain (indices and distances must be bit-identical)")
@@ -498,29 +546,39 @@ def knn_kernel_phase(corner, surf, ref_c, ref_s, x0):
             fail("knn duplicates: expected indices 0..4, the smaller index first")
         err = max(err, d_err)
 
-    log("    times (CUDA events; wrapper calls; plain = knn_plain on the card; "
-        "library = torch.cdist(...).square_().masked_fill_(...).topk(5))")
-    big = torch.tensor(races.BIG, device=dev)
-    out = {}
-    for tag, q, ref in (("surf", qs, ref_s), ("corner", qc, ref_c)):
-        M = ref.xyz.shape[0]
-        Q = q.shape[1]
-        rexp = ref.xyz[None].expand(B, M, 3)
-        inval = ~ref.mask
-        ms = time_ms(lambda: knn.knn(q, ref.xyz, ref.mask, KNN_K), reps=20)
-        plain_ms = time_ms(lambda: knn.knn_plain(q, ref.xyz, ref.mask, KNN_K), reps=3, warmup=1)
-        library_ms = time_ms(lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big)
-                             .topk(KNN_K, largest=False), reps=3, warmup=1)
-        pairs = B * Q * M
-        t_ops = pairs * OPS_PER_PAIR["knn"] / FP32_PEAK_OPS * 1e3
-        t_bytes = (B * Q * 12 + M * 16 + B * Q * KNN_K * 8) / HBM_BYTES_PER_S * 1e3
-        out[tag] = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms,
-                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-                        bound_by="operations" if t_ops >= t_bytes else "bytes")
-        log(f"    knn {tag} [{B}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
-            f"bound {out[tag]['bound_ms']:.4f} ms ({out[tag]['bound_by']})")
-    return out
+    log(f"    times ({KNN_TIMES})")
+    return {tag: knn_times(tag, q, ref, err)
+            for tag, q, ref in (("surf", qs, ref_s), ("corner", qc, ref_c))}
+
+
+KNN_TIMES = ("CUDA events; wrapper calls; plain = knn_plain on the card; "
+             "library = torch.cdist(...).square_().masked_fill_(...).topk(5)")
+
+
+def knn_times(tag, q, ref, err):
+    """The k-NN kernel's, plain version's and library chain's ms on a shared
+    reference, beside the bound; logged and returned as a kernels-line row."""
+    from cooper_mapper_torch.ops import knn, races
+
+    B, Q, _ = q.shape
+    M = ref.xyz.shape[0]
+    rexp = ref.xyz[None].expand(B, M, 3)
+    inval = ~ref.mask
+    big = torch.tensor(races.BIG, device=q.device)
+    ms = time_ms(lambda: knn.knn(q, ref.xyz, ref.mask, KNN_K), reps=20)
+    plain_ms = time_ms(lambda: knn.knn_plain(q, ref.xyz, ref.mask, KNN_K), reps=3, warmup=1)
+    library_ms = time_ms(lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big)
+                         .topk(KNN_K, largest=False), reps=3, warmup=1)
+    pairs = B * Q * M
+    t_ops = pairs * OPS_PER_PAIR["knn"] / FP32_PEAK_OPS * 1e3
+    t_bytes = (B * Q * 12 + M * 16 + B * Q * KNN_K * 8) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"    knn {tag} [{B}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
 
 
 def scan_match_phase(corner, surf, ref_c, ref_s, x0):
@@ -535,7 +593,8 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     res = sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, x0, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
-    expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "knn": 2 * (cfg.max_iterations + 1)}
+    expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 0,
+                "knn": 2 * (cfg.max_iterations + 1)}
     log(f"    launches in the scan-to-map run: {launches} (expected {expected})")
     if launches != expected:
         fail("the scan-to-map path did not launch the k-NN kernel as expected")
@@ -581,11 +640,385 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     return launches, B / best, B / med
 
 
+def fused_bytes(B, Q, M, n_races):
+    """Bytes the fused search must move: queries, the reference (xyz, mask,
+    ring), one (index, distance) pair per race and query."""
+    return B * Q * 12 + M * 17 + n_races * B * Q * 8
+
+
+def compare_exact(label, got, want, where=None):
+    """Index and distance tuples equal bit for bit (on ``where`` if given)."""
+    torch.cuda.synchronize()
+    sel = (lambda t: t[where]) if where is not None else (lambda t: t)
+    n_bad = sum(int((sel(g) != sel(w)).sum()) for g, w in zip(got[0::2], want[0::2]))
+    d_err = max(float((sel(g) - sel(w)).abs().max()) for g, w in zip(got[1::2], want[1::2]))
+    n_q = got[0].numel() if where is None else int(where.sum())
+    log(f"    {label}: {n_q} queries, index mismatches {n_bad}, max |dd| {d_err:.3g}")
+    if n_bad or not all(torch.equal(sel(g), sel(w)) for g, w in zip(got[1::2], want[1::2])):
+        fail(f"{label}: the kernel disagrees")
+    return d_err
+
+
+def fused_kernel_phase(stream_clouds, bench_clouds):
+    """The fused kernel against its plain version and the split kernels, at
+    the single-stream shapes (B = 1) and the odometry bench shapes (B = 512),
+    with a per-problem reference and a ragged M; the split kernels against
+    their plain versions at the B = 1 shapes; then the fused kernel's times."""
+    from cooper_mapper_torch.ops import neighbors, races
+
+    log("[8] fused race kernel vs its plain version and the split kernels")
+    span = 2.5
+    dev = stream_clouds[0].device
+    rng = np.random.RandomState(8)
+    rand = lambda *shape: torch.from_numpy(rng.uniform(-8, 8, shape).astype(np.float32)).to(dev)
+    ragged_ref = (rand(1000, 3), torch.from_numpy(rng.randint(0, 16, 1000).astype(np.int32)).to(dev),
+                  torch.from_numpy(rng.rand(1000) > 0.1).to(dev))
+    sq, fq, c_ref, s_ref = stream_clouds
+    bsharp, bflat, b_ref_c, b_ref_s = bench_clouds
+    nb = min(8, bflat.shape[0])
+    b_ref_sb = tile(b_ref_s, nb)
+    cases = [
+        ("single-stream corner", sq, c_ref, False),
+        ("single-stream surf", fq, s_ref, True),
+        ("bench corner", bsharp, b_ref_c, False),
+        ("bench surf", bflat, b_ref_s, True),
+        ("bench surf per-problem ref", bflat[:nb].contiguous(), b_ref_sb, True),
+        ("ragged Q=333 M=1000", rand(3, 333, 3), None, True),
+    ]
+    err = 0.0
+    for label, q, ref, with_same in cases:
+        xyz, ring, mask = ragged_ref if ref is None else (ref.xyz, ref.ring, ref.mask)
+        shared = xyz.dim() == 2
+        got = races.fused_races(q, xyz, ring, mask, with_same, span)
+        err = max(err, compare_exact(f"{label} {tuple(q.shape)} vs {tuple(xyz.shape)} vs plain",
+                                     got, races.fused_races_plain(q, xyz, ring, mask, with_same,
+                                                                  span)))
+        ia, da = races.nn1(q, xyz, mask)
+        ring_a = neighbors.take_ref(ring, ia, shared)
+        split = (ia, da) + (races.bc_races(q, ring_a, ia, xyz, ring, mask, span) if with_same
+                            else races.nn1_masked(q, ring_a, ia, xyz, ring, mask, "adj", span))
+        a_valid = neighbors.take_ref(mask, ia, shared)
+        compare_exact(f"{label} vs the split kernels where A is valid", got, split, a_valid)
+        if label.startswith("single-stream"):
+            # the split route's launches at B = 1, every query
+            compare_exact(f"{label} nn1 vs nn1_plain", (ia, da), races.nn1_plain(q, xyz, mask))
+            plain = (races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, span) if with_same
+                     else races.nn1_masked_plain(q, ring_a, ia, xyz, ring, mask, "adj", span))
+            compare_exact(f"{label} {'bc_races' if with_same else 'nn1_masked adj'} vs plain",
+                          split[2:], plain)
+
+    log("    times (CUDA events; plain = fused_races_plain on the card; library = "
+        "torch.cdist chain: min, ring gather, masked mins)")
+    big = torch.tensor(races.BIG, device=dev)
+    out = {}
+    for label, q, ref, with_same in cases[:4]:
+        B, Q, _ = q.shape
+        M = ref.xyz.shape[0]
+        rexp = ref.xyz[None].expand(B, M, 3)
+        inval = ~ref.mask
+        ringf = torch.where(ref.mask, ref.ring.float(), torch.tensor(races.RING_INVALID, device=dev))
+        cols = torch.arange(M, device=dev)
+
+        def lib():
+            d = torch.cdist(q, rexp).square_().masked_fill_(inval, big)
+            da, ia = d.min(-1)
+            ra = ringf[ia][..., None]
+            res = [(da, ia)]
+            if with_same:
+                same = (ringf == ra) & (cols != ia[..., None])
+                res.append(d.masked_fill(~same, big).min(-1))
+            rd = (ringf - ra).abs_()
+            res.append(d.masked_fill_(~((rd > 0) & (rd <= span)), big).min(-1))
+            return res
+
+        args = (q, ref.xyz, ref.ring, ref.mask, with_same, span)
+        ms = time_ms(lambda: races.fused_races(*args), reps=20)
+        plain_ms = time_ms(lambda: races.fused_races_plain(*args), reps=3, warmup=1)
+        library_ms = time_ms(lib, reps=3, warmup=1)
+        pairs = B * Q * M
+        t_ops = pairs * OPS_PER_PAIR["fused_races" if with_same else "fused_races_corner"] \
+            / FP32_PEAK_OPS * 1e3
+        t_bytes = fused_bytes(B, Q, M, 3 if with_same else 2) / HBM_BYTES_PER_S * 1e3
+        row = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        out[label] = row
+        log(f"    fused_races {label} [{row['shape']}, {pairs:.3g} pairs, blocks "
+            f"{-(-Q // 128) * B}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+            f"{library_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return out
+
+
+def build_sweeps(device, n=SS_SWEEPS, width=WIDTH, n_rings=RINGS, size=(30.0, 4.0, 60.0),
+                 n_pillars=10, seed=SS_WORLD_SEED, start_x=0.0):
+    """benchmarks/bench_realtime.build_sweeps, ported: a straight drive, one
+    sweep per SS_STEP_M forward.  Returns (sweeps, poses): poses[i] is the
+    start pose of sweep i (numpy [4, 4]), poses[n] the end of the last."""
+    from cooper_mapper_torch.io import sim
+
+    world = sim.make_room_world(size=size, n_pillars=n_pillars, seed=seed, device=device)
+    p = np.eye(4, dtype=np.float32)
+    p[0, 3] = start_x
+    p[1, 3] = 1.5
+    step = np.eye(4, dtype=np.float32)
+    step[2, 3] = SS_STEP_M
+    poses, sweeps = [p], []
+    for _ in range(n):
+        p2 = poses[-1] @ step
+        sweeps.append(sim.scan_sweep(world, torch.from_numpy(poses[-1]).to(device),
+                                     torch.from_numpy(p2).to(device), n_rings, width))
+        poses.append(p2)
+    return sweeps, poses
+
+
+def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
+    """init_sweep, then odometry_sweep / mapping_sweep (mapping on every
+    cfg.mapping_stride-th sweep: every second at the default, as
+    bench_realtime does) on ``device``.  Returns the state, the
+    poses [n-1, 4, 4], the mapping successes, the ms per sweep of each kind
+    from sweep 3 on, and the launches of the whole drive."""
+    import os
+
+    from cooper_mapper_torch.models import fused
+
+    os.environ["COOPER_PALLAS_FUSED"] = "1" if fused_route else "0"
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    race = ({"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 10} if fused_route
+            else {"nn1": 10, "nn1_masked": 5, "bc_races": 5, "fused_races": 0})
+    reset_launches()
+    total = dict.fromkeys(read_launches(), 0)
+    stride = max(cfg.mapping_stride, 1)
+    st = fused.create(cfg, device=device)
+    poses, oks, ms = [], [], {"odometry": [], "mapping": []}
+    try:
+        for i, sw in enumerate(sweeps):
+            before = read_launches()
+            sync()
+            t0 = time.perf_counter()
+            if i == 0:
+                st = fused.init_sweep(st, sw, cfg)
+            elif i % stride == 0:
+                st, W, ok = fused.mapping_sweep(st, sw, cfg)
+            else:
+                st, W, _ = fused.odometry_sweep(st, sw, cfg)
+            sync()
+            dt = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                continue
+            kind = "mapping" if i % stride == 0 else "odometry"
+            if i >= 3:
+                ms[kind].append(dt)
+            poses.append(W.cpu().numpy())
+            if kind == "mapping":
+                oks.append(bool(ok))
+            after = read_launches()
+            got = {k: after[k] - before[k] for k in after}
+            for k in got:
+                total[k] += got[k]
+            want = dict(race, knn=2 * (cfg.scan_match.max_iterations + 1) if kind == "mapping" else 0)
+            if check_launches and got != want:
+                fail(f"{label}: sweep {i} ({kind}) launched {got}, expected {want}")
+    finally:
+        os.environ["COOPER_PALLAS_FUSED"] = "0"
+    return st, np.stack(poses), oks, ms, total
+
+
+def map_bytes(m):
+    return sum(t.numel() * t.element_size() for cc in (m.corner, m.surf)
+               for t in (cc.rows, cc.row_mask, cc.count)) + m.origin.numel() * 4
+
+
+def make_stream(device):
+    """The single-stream drive's sweeps and truth at the default
+    PipelineConfig, and the fused search's inputs at its shapes: sweep 1's
+    sharp / flat queries against sweep 0's less-sharp / less-flat clouds."""
+    from cooper_mapper_torch.config import PipelineConfig
+    from cooper_mapper_torch.ops import features
+
+    cfg = PipelineConfig()
+    sweeps, truth = build_sweeps(device)
+    f0 = features.extract_features(sweeps[0], cfg.registration)
+    f1 = features.extract_features(sweeps[1], cfg.registration)
+    clouds = (f1.sharp.xyz[None].contiguous(), f1.flat.xyz[None].contiguous(),
+              f0.less_sharp, f0.less_flat)
+    return cfg, sweeps, truth, clouds
+
+
+def stream_phase(cfg, sweeps, truth, device):
+    """The single-stream drive at the default PipelineConfig on both routes."""
+    log(f"[9] single stream: {len(sweeps)} sweeps of {tuple(sweeps[0].mask.shape)}, {SS_STEP_M} m "
+        f"per sweep, mapping every {cfg.mapping_stride} sweeps, {'default ' * (cfg == type(cfg)())}"
+        f"PipelineConfig, on {device}")
+    runs = {}
+    for route in ("split", "fused", "split again"):
+        st, poses, oks, ms, launches = drive_stream(cfg, sweeps, device, route == "fused",
+                                                    f"{route} route")
+        if route == "split again":
+            # the drive is deterministic: a repeat of the split route equals it
+            same = bool(np.array_equal(poses, runs["split"]["poses"]))
+            log(f"    split route again: poses bit-identical to the first run {same}, max |dW| "
+                f"{float(np.abs(poses - runs['split']['poses']).max()):.3g}")
+            if not same:
+                fail("the single-stream drive is not deterministic on the card")
+            continue
+        runs[route] = dict(state=st, poses=poses, oks=oks, ms=ms, launches=launches)
+        stat = {k: (min(v), float(np.median(v))) for k, v in ms.items()}
+        log(f"    {route} route: launches {launches}; mapping success {oks}; ms per sweep "
+            f"(best / median of sweeps 3..{SS_SWEEPS - 1}): odometry {stat['odometry'][0]:.1f} / "
+            f"{stat['odometry'][1]:.1f} (budget {BUDGET_MS['odometry']:.0f}), mapping "
+            f"{stat['mapping'][0]:.1f} / {stat['mapping'][1]:.1f} (budget "
+            f"{BUDGET_MS['mapping']:.0f}); runs odometry {[round(x, 1) for x in ms['odometry']]}, "
+            f"mapping {[round(x, 1) for x in ms['mapping']]}")
+        runs[route]["stat"] = stat
+    diff = float(np.abs(runs["fused"]["poses"] - runs["split"]["poses"]).max())
+    bitwise = bool(np.array_equal(runs["fused"]["poses"], runs["split"]["poses"]))
+    log(f"    routes: poses bit-identical {bitwise}, max |dW| {diff:.3g}")
+    if not bitwise:
+        fail(f"the fused and split routes' poses differ by {diff:.3g}")
+    # the pose after sweep i is the sensor at the end of sweep i in the
+    # frame of the end of sweep 0
+    frame = np.linalg.inv(truth[1])
+    gt = frame @ truth[-1]
+    st = runs["split"]["state"]
+    pos = runs["split"]["poses"][-1][:3, 3]
+    gt_err = float(np.linalg.norm(pos - gt[:3, 3]))
+    n_map = int(st.map.surf.count.sum()) + int(st.map.corner.count.sum())
+    log(f"    final position {pos.round(4).tolist()} vs the simulator's "
+        f"{gt[:3, 3].round(4).tolist()}: error {gt_err:.4f} m (< {GT_TOL}); map points {n_map}; "
+        f"map on the card {map_bytes(st.map) / 1e6:.1f} MB")
+    if not (np.isfinite(runs["split"]["poses"]).all() and gt_err < GT_TOL):
+        fail("the single-stream drive left the ground-truth bound")
+    if n_map <= 0:
+        fail("the single-stream drive built an empty map")
+    if not any(runs["split"]["oks"]):
+        fail("no mapping sweep passed its gate")
+    return runs, frame
+
+
+def mapping_knn_phase(cfg, sweeps, device):
+    """The k-NN kernel against knn_plain, bit for bit, on a mapping sweep's
+    own inputs: sweep 4's prepared frame registered at the merge guess
+    against the surround of the map that sweeps 0..3 built.  These are the
+    first residual build's searches of that sweep's mapping_step, taken
+    stage by stage."""
+    from cooper_mapper_torch.maps import feature_map as fm
+    from cooper_mapper_torch.models import laser_mapping, laser_odometry
+    from cooper_mapper_torch.ops import features, knn
+    from cooper_mapper_torch.utils import twist
+
+    log("[10] k-NN kernel vs knn_plain at the mapping sweep's shapes (sweep 4's inputs)")
+    st = drive_stream(cfg, sweeps[:4], device, False, "sweeps 0..3")[0]
+    fc = features.extract_features(sweeps[4], cfg.registration)
+    _, odo_out = laser_odometry.step(st.odo, fc, cfg.odometry)
+    T_guess = laser_mapping.merged_pose(st.matcher, odo_out.T_sum)
+    corner_ds, surf_ds = laser_mapping.prepare_frame(odo_out.corner_for_map,
+                                                     odo_out.surf_for_map, cfg.matcher)
+    pos = T_guess[:3, 3]
+    ref_c, ref_s = fm.get_surround(fm.recenter(st.map, pos, cfg.feature_map), pos,
+                                   cfg.feature_map)
+    x = twist.from_mat(T_guess)[None]
+    queries = {}
+    for tag, frame, ref in (("surf", surf_ds, ref_s), ("corner", corner_ds, ref_c)):
+        q = queries[tag] = twist.point_to_map(x, frame.xyz[None]).contiguous()
+        ik, dk = knn.knn(q, ref.xyz, ref.mask, KNN_K)
+        ip, dp = knn.knn_plain(q, ref.xyz, ref.mask, KNN_K)
+        torch.cuda.synchronize()
+        n_bad = int((ik != ip).sum())
+        log(f"    knn {tag} {tuple(q.shape)} ({int(frame.mask.sum())} valid) vs "
+            f"{tuple(ref.xyz.shape)} ({int(ref.mask.sum())} valid): index mismatches {n_bad}, "
+            f"max |dd| {float((dk - dp).abs().max()):.3g}, valid queries' 5th-NN inside the "
+            f"5 m^2 gate {float((dp[0, frame.mask, -1] < 5.0).float().mean()):.3f}")
+        if n_bad or not torch.equal(dk, dp):
+            fail(f"knn {tag} at the mapping sweep's shape disagrees with knn_plain")
+    log(f"    times ({KNN_TIMES})")
+    for tag, ref in (("surf", ref_s), ("corner", ref_c)):
+        knn_times(tag, queries[tag], ref, 0.0)
+
+
+def localization_phase(map_state, frame, cfg, device, **world):
+    """localization_step on a built map over a second drive, seeded off by
+    tests/test_localization.py's perturbation; the map must not change.
+    ``world`` goes to build_sweeps (the map's world and sweep width)."""
+    from cooper_mapper_torch.models import laser_mapping, laser_odometry
+    from cooper_mapper_torch.ops import features
+
+    log(f"[11] localization: {LOC_SWEEPS} sweeps {LOC_OFFSET_X} m to the side, on the built map")
+    before = [t.clone() for cc in (map_state.corner, map_state.surf)
+              for t in (cc.rows, cc.row_mask, cc.count)] + [map_state.origin.clone()]
+    sweeps, truth = build_sweeps(device, n=LOC_SWEEPS + 1, start_x=LOC_OFFSET_X, **world)
+    seed_true = frame @ truth[1]        # the localization odometry starts at the end of sweep 0
+    c, s = np.cos(0.035), np.sin(0.035)
+    perturb = np.array([[c, 0, s, 0.3], [0, 1, 0, -0.1], [-s, 0, c, 0.2], [0, 0, 0, 1]],
+                       np.float32)
+    seed = (seed_true @ perturb).astype(np.float32)
+    seed_err = float(np.linalg.norm(seed[:3, 3] - seed_true[:3, 3]))
+    odo = laser_odometry.create(cfg.registration.max_less_sharp, cfg.registration.max_less_flat,
+                                device)
+    odo = laser_odometry.init_step(odo, features.extract_features(sweeps[0], cfg.registration),
+                                   cfg.odometry)
+    matcher = laser_mapping.seed_localization(laser_mapping.create_matcher(device),
+                                              torch.from_numpy(seed).to(device), odo.T_sum)
+    errs, oks = [], []
+    for i, sw in enumerate(sweeps[1:], 1):
+        fc = features.extract_features(sw, cfg.registration)
+        odo, out = laser_odometry.step(odo, fc, cfg.odometry)
+        matcher, mo = laser_mapping.localization_step(
+            matcher, map_state, out.corner_for_map, out.surf_for_map, out.T_sum,
+            cfg.scan_match, cfg.matcher, cfg.feature_map)
+        gt = frame @ truth[i + 1]
+        errs.append(float(np.linalg.norm(mo.W.cpu().numpy()[:3, 3] - gt[:3, 3])))
+        oks.append(bool(mo.result.success))
+    steady = float(np.mean(errs[2:]))
+    after = [t for cc in (map_state.corner, map_state.surf)
+             for t in (cc.rows, cc.row_mask, cc.count)] + [map_state.origin]
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, after))
+    log(f"    seed error {seed_err:.4f} m; errors {[round(e, 4) for e in errs]}; success {oks}; "
+        f"steady {steady:.4f} m (< {0.5 * seed_err:.4f}); map unchanged {unchanged}")
+    if not steady < 0.5 * seed_err:
+        fail("localization did not recover from the perturbed seed")
+    if not unchanged:
+        fail("localization wrote the map")
+    return steady, seed_err
+
+
+def reduced_card_vs_cpu_phase(device):
+    """tests/test_pipeline.py::TestFusedSteps' configuration and drive on the
+    card and on the CPU: every pose within CPU_TOL."""
+    from cooper_mapper_torch import config as C
+
+    cfg = C.PipelineConfig(
+        registration=C.RegistrationConfig(n_rings=16, max_points_per_ring=512),
+        scan_match=C.ScanMatchConfig(score_threshold=50.0),
+        feature_map=C.MapConfig(n_cubes=(7, 3, 7), cube_size=20.0, corner_cube_capacity=1024,
+                                surf_cube_capacity=2048, surround_corner_capacity=8192,
+                                surround_surf_capacity=16384, valid_distance=60.0),
+        matcher=C.MatcherConfig(max_frame_corner=2048, max_frame_surf=4096))
+    log("[12] card vs CPU at TestFusedSteps' reduced configuration (16x512, 7x3x7 map, 6 sweeps)")
+    poses = {}
+    for dev in (device, "cpu"):
+        sweeps, truth = build_sweeps(dev, n=6, width=512, size=(30.0, 4.0, 40.0), n_pillars=8,
+                                     seed=31)
+        _, poses[dev], _, _, _ = drive_stream(cfg, sweeps, dev, False, f"reduced {dev}",
+                                              check_launches=dev != "cpu")
+    dx = float(np.abs(poses[device] - poses["cpu"]).max())
+    gt = np.linalg.inv(truth[1]) @ truth[-1]
+    gt_err = float(np.linalg.norm(poses[device][-1][:3, 3] - gt[:3, 3]))
+    log(f"    max |dW| card vs CPU {dx:.3g} (tolerance {CPU_TOL}); final position error "
+        f"{gt_err:.4f} m")
+    if not (dx <= CPU_TOL and gt_err < GT_TOL):
+        fail("the card and CPU single-stream runs disagree")
+    return dx
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
     import cooper_mapper_torch  # noqa: F401  (TF32 off)
 
+    import os
+
+    os.environ["COOPER_PALLAS_FUSED"] = "0"      # the default route, whatever the caller set
     device = "cuda"
     name, smi = card_line()
     build_s = build_phase()
@@ -613,9 +1046,21 @@ def main():
     launches["knn"] = sm_launches["knn"]
     kern["knn"] = knn_rows["surf"]
 
+    ss_cfg, sweeps, truth, ss_clouds = make_stream(device)
+    fused_rows = fused_kernel_phase(ss_clouds, (sharp.xyz, flat.xyz, ref_c, ref_s))
+    runs, frame = stream_phase(ss_cfg, sweeps, truth, device)
+    launches["fused_races"] = runs["fused"]["launches"]["fused_races"]
+    ss_stats = {r: dict(stat=v["stat"]) for r, v in runs.items()}
+    kern["fused_races"] = fused_rows["single-stream surf"]
+    mapping_knn_phase(ss_cfg, sweeps, device)
+    loc_steady, loc_seed = localization_phase(runs["split"]["state"].map, frame, ss_cfg, device)
+    del runs
+    reduced_dx = reduced_card_vs_cpu_phase(device)
+
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
                "bc_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:301", "races.cu"),
+               "fused_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:416", "races.cu"),
                "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
     rows = [{
         "name": k, "route": "cuda", "source": f"cooper_mapper_torch/csrc/{sources[k][1]}",
@@ -624,9 +1069,14 @@ def main():
         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
         "library_ms": v["library_ms"], "shape": v["shape"],
     } for k, v in kern.items()]
-    log(f"[8] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    log(f"[13] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
-        f"({sm_med:.1f} median) at B={SM_BATCH}; on {name} ({smi})")
+        f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
+        + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
+                    f"{v['stat']['odometry'][1]:.1f}, mapping {v['stat']['mapping'][0]:.1f} / "
+                    f"{v['stat']['mapping'][1]:.1f}" for r, v in ss_stats.items())
+        + f"; localization steady error {loc_steady:.4f} m (seed {loc_seed:.4f}); reduced "
+        f"card vs CPU {reduced_dx:.3g}; on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,6 +1,7 @@
-"""numpy <-> port state: builds the port's ``Cloud``, ``Sweep`` and
-``FeatureClouds`` from numpy arrays whose field names are the JAX package's,
-and turns results back into numpy.
+"""numpy <-> port state: builds the port's ``Cloud``, ``Sweep``,
+``FeatureClouds`` and the single-stream states (``OdometryState``,
+``MatcherState``, ``FeatureMapState``, ``FusedState``) from numpy arrays
+whose field names are the JAX package's, and turns results back into numpy.
 
 There are no weights in this system; what crosses between the packages is
 state (clouds in, results out).  ``cloud``, ``sweep`` and
@@ -18,6 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .maps.feature_map import CubeCloud, FeatureMapState
+from .models.fused import FusedState
+from .models.laser_mapping import MatcherState
+from .models.laser_odometry import OdometryState
 from .ops.features import FeatureClouds, Sweep
 from .utils.cloud import Cloud
 
@@ -44,6 +49,33 @@ def sweep(s, device="cuda") -> Sweep:
 def feature_clouds(fc, device="cuda") -> FeatureClouds:
     return FeatureClouds(*(cloud(getattr(fc, f), device)
                            for f in ("sharp", "less_sharp", "flat", "less_flat")))
+
+
+def _array(a, dtype, device):
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def odometry_state(s, device="cuda") -> OdometryState:
+    return OdometryState(cloud(s.last_corner, device), cloud(s.last_surf, device),
+                         _array(s.x_prev, torch.float32, device),
+                         _array(s.T_sum, torch.float32, device))
+
+
+def matcher_state(s, device="cuda") -> MatcherState:
+    return MatcherState(_array(s.L_last, torch.float32, device),
+                        _array(s.W_last, torch.float32, device))
+
+
+def feature_map_state(s, device="cuda") -> FeatureMapState:
+    cube = lambda cc: CubeCloud.from_dense(_array(cc.xyz, torch.float32, device),
+                                           _array(cc.mask, torch.bool, device),
+                                           _array(cc.count, torch.int32, device))
+    return FeatureMapState(cube(s.corner), cube(s.surf), _array(s.origin, torch.int32, device))
+
+
+def fused_state(s, device="cuda") -> FusedState:
+    return FusedState(odometry_state(s.odo, device), matcher_state(s.matcher, device),
+                      feature_map_state(s.map, device))
 
 
 def to_numpy(result) -> dict:

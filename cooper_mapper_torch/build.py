@@ -101,9 +101,10 @@ def library() -> ctypes.CDLL:
         lib.cooper_nn1.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
         lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
+        lib.cooper_fused_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
         lib.cooper_knn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
-                   lib.cooper_knn):
+                   lib.cooper_fused_races, lib.cooper_knn):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

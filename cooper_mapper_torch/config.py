@@ -1,8 +1,11 @@
 """Configuration dataclasses of the ported slices.
 
 Field-for-field copies of ``RegistrationConfig``, ``OdometryConfig``,
-``ScanMatchConfig`` and ``MatcherConfig`` in ``cooper_mapper_tpu/config.py``
-(tests/test_torch_config.py holds them together).  The port keeps its own
+``ScanMatchConfig``, ``MapConfig`` and ``MatcherConfig`` in
+``cooper_mapper_tpu/config.py`` (tests/test_torch_config.py holds them
+together).  ``PipelineConfig`` carries only the fields the single-stream
+sweep (``models/fused.py``) reads; the UKF, keyframe, loop and pose-graph
+sections belong to slices not ported yet.  The port keeps its own
 copy because it must import nothing of the JAX package.
 ``OdometryConfig``'s ``nn_query_chunk``, ``kernel_backend``,
 ``nn_precision`` and ``unroll_iters`` and ``ScanMatchConfig.kernel_backend``
@@ -15,6 +18,7 @@ products are always full f32, and its GN loops are Python loops.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +103,26 @@ class ScanMatchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MapConfig:
+    """Cube-grid feature map (FeatureMap.h; params LaserMatcher.cpp:107-113)."""
+
+    cube_size: float = 50.0
+    n_cubes: Tuple[int, int, int] = (21, 11, 21)
+    valid_distance: float = 150.0        # lidarValidDistance (active-area cull)
+    corner_cube_capacity: int = 4096     # points stored per cube
+    surf_cube_capacity: int = 8192
+    corner_leaf: float = 0.2             # insertion re-voxelize leaves
+    surf_leaf: float = 0.4
+    margin_cubes: int = 3                # sensor kept >= 3 cubes from boundary
+    dedup_policy: str = "centroid"       # read by dedup_active, not ported yet
+    surround_corner_capacity: int = 32768
+    surround_surf_capacity: int = 65536
+    # vertical-FOV active-area cull (DynamicFeatureMap.h:748-804); 0/0 disables
+    vfov_up_deg: float = 0.0
+    vfov_down_deg: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class MatcherConfig:
     """LaserMatcher shared knobs (LaserMatcher.cpp:45-170)."""
 
@@ -110,3 +134,16 @@ class MatcherConfig:
     max_frame_surf: int = 8192
     dedup_stride: int = 4
     commit_rejected_solves: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """The fields of the JAX package's ``PipelineConfig`` that the
+    single-stream sweep reads, with the same defaults."""
+
+    registration: RegistrationConfig = RegistrationConfig()
+    odometry: OdometryConfig = OdometryConfig()
+    scan_match: ScanMatchConfig = ScanMatchConfig()
+    feature_map: MapConfig = MapConfig()
+    matcher: MatcherConfig = MatcherConfig()
+    mapping_stride: int = 2   # mapping every Nth sweep (rate decoupling)

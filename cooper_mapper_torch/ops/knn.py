@@ -25,8 +25,9 @@ import torch
 from . import races
 
 # Elements of one distance chunk of the plain version ([b, q, M] f32, plus
-# the sort's values and int64 indices): ~256 MB at 2^24.
-_PLAIN_CHUNK_ELEMS = 1 << 24
+# its temporaries): ~64 MB at 2^24 keeps the card's launches few; on the CPU
+# 2^20 (4 MB) stays in cache and runs ~1.5x faster.
+_PLAIN_CHUNK_ELEMS = {"cuda": 1 << 24, "cpu": 1 << 20}
 
 
 def _check_knn(q, r_xyz, r_mask, k: int):
@@ -37,11 +38,11 @@ def _check_knn(q, r_xyz, r_mask, k: int):
     return B, Q, M, shared
 
 
-def _chunks(B, Q, M, shared):
+def _chunks(B, Q, M, shared, device_type):
     """(batch slice, query slice) pairs covering [B, Q], each with at most
     ~_PLAIN_CHUNK_ELEMS distances.  A shared reference lets one chunk span
     several problems; a per-problem one is cut per problem."""
-    per_q = max(1, _PLAIN_CHUNK_ELEMS // M)
+    per_q = max(1, _PLAIN_CHUNK_ELEMS[device_type] // M)
     if per_q >= Q:
         step = max(1, per_q // Q) if shared else 1
         return [(slice(s, min(B, s + step)), slice(0, Q)) for s in range(0, B, step)]
@@ -56,14 +57,40 @@ def _first_k(d, k: int):
     ``torch.topk`` does not promise the smaller index among equal values, so
     it only answers the rows where no tie can matter: k distinct values and
     nothing else equal to the k-th, where the k-set and its order are unique.
-    Every other row is sorted with ``torch.sort(..., stable=True)``.
+    Every other row goes to ``_first_k_tied``.
     """
-    v, i = torch.topk(d, k, dim=-1, largest=False, sorted=True)
-    tied = ((d <= v[..., -1:]).sum(-1) > k) | (v[..., 1:] == v[..., :-1]).any(-1)
+    kk = min(k + 1, d.shape[-1])
+    v, i = torch.topk(d, kk, dim=-1, largest=False, sorted=True)
+    # a tie matters when the k values repeat or the (k+1)-th equals the k-th
+    tied = (v[..., 1:] == v[..., :-1]).any(-1)
+    v, i = v[..., :k].contiguous(), i[..., :k].contiguous()
     if bool(tied.any()):
-        sv, si = torch.sort(d[tied], dim=-1, stable=True)
-        v[tied], i[tied] = sv[:, :k], si[:, :k]
+        v[tied], i[tied] = _first_k_tied(d[tied], v[tied], i[tied])
     return i.to(torch.int32), v
+
+
+def _first_k_tied(d, v, i):
+    """The first k columns of a stable sort of each row of ``d`` [n, M],
+    given the row's k smallest values ``v`` [n, k] ascending and their
+    columns ``i`` from ``torch.topk``.  The c entries below the k-th value
+    are ``v``'s first c (their set is unique); the rest are the first k - c
+    columns equal to the k-th value, in index order.  The k columns are then
+    ordered by (value, index).  NaN counts as larger than everything and
+    equal to itself, as in ``torch.sort``."""
+    k = v.shape[-1]
+    vk = v[:, -1:]
+    vk_nan = torch.isnan(vk)
+    c = ((v < vk) | (vk_nan & ~torch.isnan(v))).sum(-1, keepdim=True)
+    at_k = d == vk
+    if bool(vk_nan.any()):
+        at_k |= vk_nan & torch.isnan(d)
+    # column of the r-th (1-based) entry equal to the k-th value
+    rank = torch.arange(1, k + 1, device=d.device) - c
+    cum = torch.cumsum(at_k, -1, dtype=torch.int32)
+    at_cols = torch.searchsorted(cum, rank.clamp(min=1).to(torch.int32))
+    cols = torch.where(rank >= 1, at_cols, i).sort(dim=-1).values
+    vals, order = torch.sort(torch.gather(d, 1, cols), dim=-1, stable=True)
+    return vals, torch.gather(cols, 1, order)
 
 
 def knn_plain(q, r_xyz, r_mask, k: int = 5):
@@ -76,7 +103,7 @@ def knn_plain(q, r_xyz, r_mask, k: int = 5):
     rn = races._ref_norms(r_xyz, r_mask)
     idx = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
     dist = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
-    for bs, qs in _chunks(B, Q, M, shared):
+    for bs, qs in _chunks(B, Q, M, shared, q.device.type):
         r, n = (r_xyz, rn) if shared else (r_xyz[bs], rn[bs])
         idx[bs, qs], dist[bs, qs] = _first_k(races.pairwise_sq_dist(q[bs, qs], r, n), k)
     return idx, dist

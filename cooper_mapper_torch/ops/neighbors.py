@@ -13,9 +13,17 @@ and ``knn_chunked`` are ``ops.knn.knn_plain`` here, which chunks itself.
 Queries are ``[B, Q, 3]``; the reference ``Cloud`` is shared (xyz ``[M, 3]``)
 or per problem (xyz ``[B, M, 3]``).  Returned indices are int32 in
 ``[0, M)``.
+
+``COOPER_PALLAS_FUSED=1`` routes ``corner_pairs`` / ``surf_triples`` through
+the one-launch ``races.fused_races`` under the JAX package's gate
+(``_fused_tile_q``): M rounded up to 128 at most 8192, Q a multiple of 128.
+It is off by default, as in the JAX package.  On every query whose nearest
+reference point is valid, both routes give the same selections.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -36,12 +44,25 @@ def take_ref(values, idx, shared: bool):
     return torch.gather(values, 1, idx[..., None].expand(-1, -1, values.shape[-1]))
 
 
+def fused_route(n_queries: int, n_ref: int) -> bool:
+    """True when a search of ``n_queries`` per problem against ``n_ref``
+    reference points takes the fused kernel: the JAX package's
+    ``_fused_tile_q`` gate, with M rounded up to 128 as its padding does."""
+    if os.environ.get("COOPER_PALLAS_FUSED", "0") != "1":
+        return False
+    return -(-n_ref // 128) * 128 <= 8192 and n_queries % 128 == 0
+
+
 def corner_pairs(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
     """Odometry corner correspondences (LaserOdometry.cpp:358-408).
 
     A = nearest reference corner; B = nearest corner on a different ring
     within ``ring_span`` rings of A's ring.  Returns (ia, ib, valid), [B, Q].
     """
+    if fused_route(q_xyz.shape[-2], ref.capacity):
+        ia, da, ib, db = races.fused_races(q_xyz, ref.xyz, ref.ring, ref.mask, False,
+                                           ring_span)
+        return ia, ib, (da < max_sq_dist) & (db < max_sq_dist)
     ia, da = races.nn1(q_xyz, ref.xyz, ref.mask)
     ring_a = take_ref(ref.ring, ia, ref.xyz.dim() == 2)
     ib, db = races.nn1_masked(q_xyz, ring_a, ia, ref.xyz, ref.ring, ref.mask,
@@ -56,10 +77,14 @@ def surf_triples(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
     C = nearest surf point on a different ring within ``ring_span``.
     Returns (ia, ib, ic, valid), [B, Q].
     """
-    ia, da = races.nn1(q_xyz, ref.xyz, ref.mask)
-    ring_a = take_ref(ref.ring, ia, ref.xyz.dim() == 2)
-    ib, db, ic, dc = races.bc_races(q_xyz, ring_a, ia, ref.xyz, ref.ring,
-                                    ref.mask, ring_span)
+    if fused_route(q_xyz.shape[-2], ref.capacity):
+        ia, da, ib, db, ic, dc = races.fused_races(q_xyz, ref.xyz, ref.ring, ref.mask,
+                                                   True, ring_span)
+    else:
+        ia, da = races.nn1(q_xyz, ref.xyz, ref.mask)
+        ring_a = take_ref(ref.ring, ia, ref.xyz.dim() == 2)
+        ib, db, ic, dc = races.bc_races(q_xyz, ring_a, ia, ref.xyz, ref.ring,
+                                        ref.mask, ring_span)
     valid = (da < max_sq_dist) & (db < max_sq_dist) & (dc < max_sq_dist)
     return ia, ib, ic, valid
 

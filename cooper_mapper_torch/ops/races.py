@@ -1,7 +1,7 @@
 """The nearest-neighbour races of the odometry correspondence search
 (port of ``cooper_mapper_tpu/ops/pallas/nn1.py``).
 
-Three races, each with a wrapper, a launch counter and a plain PyTorch
+Four searches, each with a wrapper, a launch counter and a plain PyTorch
 version:
 
 * ``nn1``         — race A: for each query, ``(argmin, min)`` of
@@ -11,6 +11,12 @@ version:
   ``ring == ring_a`` and index ``!= ia`` (``_nn1_masked_kernel``).
 * ``bc_races``    — surf races B (``"same"``) and C (``"adj"``) from one
   distance per pair (``_bc_races_kernel``).
+* ``fused_races`` — every race of one correspondence search in one launch:
+  A, then A's ring read from the reference, then C (and B with
+  ``with_same``) (``_fused_races_kernel``).  On every query whose A is a
+  valid reference point it equals ``nn1`` followed by ``bc_races`` or
+  ``nn1_masked("adj")``; where A is invalid its ring is ``1e9``, as in the
+  TPU kernel, not the invalid point's stored ring.
 
 Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask and
 ring ``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``).  Outputs are
@@ -84,6 +90,14 @@ def _ref_rings(r_ring, r_mask):
     """Ring as f32 with RING_INVALID at invalid reference points: [*, M]."""
     return torch.where(r_mask, r_ring.to(torch.float32),
                        torch.full_like(r_mask, RING_INVALID, dtype=torch.float32))
+
+
+def _fused_inputs(q, r_xyz, r_ring, r_mask):
+    """Validate the fused search's inputs and derive what both paths read:
+    (B, Q, M, shared, |r|^2 [*, M], ring [*, M] f32)."""
+    B, Q, M, shared = _check_race(q, r_xyz, r_mask)
+    _check("r_ring", r_ring, torch.int32, tuple(r_mask.shape), q.device)
+    return B, Q, M, shared, _ref_norms(r_xyz, r_mask), _ref_rings(r_ring, r_mask)
 
 
 def _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask, mode="adj"):
@@ -191,6 +205,30 @@ def bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5)
     return tuple(torch.cat(o) for o in outs)
 
 
+def fused_races_plain(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.5):
+    """Every race of one search, plain PyTorch: (ia, da, ib, db, ic, dc) with
+    ``with_same`` (surf), else (ia, da, ic, dc) (corner), each [B, Q].
+    A's ring is read from the f32 ring array, so it is RING_INVALID where
+    A is an invalid point."""
+    B, Q, M, shared, rn, ring = _fused_inputs(q, r_xyz, r_ring, r_mask)
+    n_out = 6 if with_same else 4
+    outs = [[] for _ in range(n_out)]
+    for s, e in _batch_chunks(B, Q, M):
+        d = pairwise_sq_dist(q[s:e], _take(r_xyz, shared, s, e), _take(rn, shared, s, e))
+        ia, da = _argmin_rows(d)
+        rg = _take(ring, shared, s, e)
+        ra = rg[ia.long()] if shared else torch.gather(rg, 1, ia.long())
+        res = [ia, da]
+        if with_same:
+            ok_b = _ring_ok(rg, ra, ia, "same", ring_span, M)
+            res += _argmin_rows(torch.where(ok_b, d, BIG))
+        ok_c = _ring_ok(rg, ra, ia, "adj", ring_span, M)
+        res += _argmin_rows(d.masked_fill_(~ok_c, BIG))
+        for k, r in enumerate(res):
+            outs[k].append(r)
+    return tuple(torch.cat(o) for o in outs)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: plain version on the CPU, kernel on the card
 # ---------------------------------------------------------------------------
@@ -267,7 +305,29 @@ def bc_races(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
     return ib, db, ic, dc
 
 
+def fused_races(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.5):
+    """Every race of one search in one launch: (ia, da, ib, db, ic, dc) with
+    ``with_same``, else (ia, da, ic, dc), each [B, Q]."""
+    if not _require_device(q):
+        return fused_races_plain(q, r_xyz, r_ring, r_mask, with_same, ring_span)
+    from ..build import library
+
+    B, Q, M, shared, rn, ring = _fused_inputs(q, r_xyz, r_ring, r_mask)
+    idx = lambda: torch.empty((B, Q), dtype=torch.int32, device=q.device)
+    dist = lambda: torch.empty((B, Q), dtype=torch.float32, device=q.device)
+    ia, da, ic, dc = idx(), dist(), idx(), dist()
+    ib, db = (idx(), dist()) if with_same else (None, None)
+    _launch("fused_races", q, library().cooper_fused_races,
+            q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), ring.data_ptr(),
+            da.data_ptr(), ia.data_ptr(), db.data_ptr() if with_same else None,
+            ib.data_ptr() if with_same else None, dc.data_ptr(), ic.data_ptr(),
+            B, Q, M, 0 if shared else M, int(with_same), float(ring_span))
+    fused_races.launches += 1
+    return (ia, da, ib, db, ic, dc) if with_same else (ia, da, ic, dc)
+
+
 nn1.launches = 0
 nn1_masked.launches = 0
 bc_races.launches = 0
-KERNELS = (nn1, nn1_masked, bc_races)
+fused_races.launches = 0
+KERNELS = (nn1, nn1_masked, bc_races, fused_races)

@@ -51,10 +51,13 @@ def voxel_downsample(c: Cloud, leaf: float, capacity: int | None = None) -> Clou
     # one output per voxel: the first sorted point carries the metadata
     out_mask = new_seg & mask_s
     w = mask_s.to(torch.float32)
-    sums = torch.zeros((n, 3), dtype=torch.float32, device=ijk.device)
-    sums.index_add_(0, seg_id, xyz_s * w[:, None])
-    cnts = torch.zeros(n, dtype=torch.float32, device=ijk.device)
-    cnts.index_add_(0, seg_id, w)
+    # segment_reduce adds each voxel's points one after another in index
+    # order on both devices, so the f32 sums equal the JAX package's
+    # segment_sum and repeat bit for bit (index_add_ on the card adds with
+    # atomics in no fixed order)
+    lengths = torch.bincount(seg_id, minlength=n)
+    sums = torch.segment_reduce(xyz_s * w[:, None], "sum", lengths=lengths)
+    cnts = torch.segment_reduce(w, "sum", lengths=lengths)
     centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
     out_xyz = torch.where(out_mask[:, None], centroids[seg_id],
                           torch.full_like(xyz_s, cloud_lib.FAR))

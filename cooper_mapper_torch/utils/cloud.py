@@ -40,6 +40,11 @@ def make(xyz, mask, ring=None, rel_time=None) -> Cloud:
     return Cloud(xyz, mask, ring, rel_time)
 
 
+def empty(capacity: int, device=None) -> Cloud:
+    return make(torch.full((capacity, 3), FAR, dtype=torch.float32, device=device),
+                torch.zeros(capacity, dtype=torch.bool, device=device))
+
+
 def compact(c: Cloud, capacity: int | None = None) -> Cloud:
     """Stable-sort valid points to the front of an unbatched cloud, then keep
     the first ``capacity`` entries."""

@@ -1,5 +1,5 @@
 """SE(3) / Euler-convention math: the part of ``cooper_mapper_tpu/utils/se3.py``
-that the twist warps, the simulator and the mapping front end use.
+that the twist warps, the simulator and the odometry and mapping stages use.
 
 Conventions are the JAX package's: ``TZYX`` poses ``p' = Rz Ry Rx p + t``,
 Euler 6-vectors ``[rx, ry, rz, tx, ty, tz]``, twists ``[v, w]`` (translation
@@ -85,6 +85,12 @@ def apply(T, p):
     if p.dim() >= 2:
         return p @ R.transpose(-1, -2) + t[..., None, :]
     return (R @ p[..., None])[..., 0] + t
+
+
+def transform_associate(L_old, L_new, W_old):
+    """W_new = (W_old @ L_old^-1) @ L_new  (transform_utils.h:502-507):
+    chains the mapping correction onto fresh odometry."""
+    return W_old @ inverse(L_old) @ L_new
 
 
 def skew(v):

@@ -35,6 +35,14 @@ def warp_to_start(x, points, s):
     )
 
 
+def warp_to_end(x, points, s):
+    """Project points to the sweep end frame (transformToEnd,
+    LaserOdometry.cpp:156-168): ``p_end = TZYX(x)^-1 warp_to_start(p)``."""
+    p_start = warp_to_start(x, points, s)
+    T_inv = se3.inverse(se3.euler6_to_mat(x))
+    return p_start @ T_inv[..., :3, :3].transpose(-1, -2) + T_inv[..., None, :3, 3]
+
+
 def point_to_map(x, points):
     """World registration ``Rz Ry Rx p + t``: x [..., 6], points [..., N, 3]."""
     return _tzyx_apply_elementwise(
@@ -46,6 +54,16 @@ def point_to_map(x, points):
 
 def to_mat(x):
     """Twist 6-vec -> 4x4 matrix in the canonical TZYX convention."""
+    return se3.euler6_to_mat(x)
+
+
+def from_mat(T):
+    return se3.mat_to_euler6(T)
+
+
+def to_relative_motion(x):
+    """Twist -> the relative sensor pose over the sweep, M = T_start^-1 T_end,
+    which under the forward TZYX warp convention is TZYX(x)."""
     return se3.euler6_to_mat(x)
 
 

@@ -49,6 +49,31 @@ def test_twist_matrix_roundtrip_matches():
     np.testing.assert_allclose(inv_t, np.asarray(jse3.inverse(jnp.asarray(Mt.numpy()))), atol=ATOL)
 
 
+@pytest.mark.parametrize("seed", [4, 5])
+def test_single_stream_helpers_match(seed):
+    # warp_to_end, from_mat, to_relative_motion, transform_associate
+    x, pts, s = _inputs(seed)
+    tx, tp, ts = map(torch.from_numpy, (x, pts, s))
+    jx, jp, js = map(jnp.asarray, (x, pts, s))
+    T = ttwist.to_mat(tx)
+    jT = jnp.asarray(T.numpy())
+    pairs = [
+        (ttwist.warp_to_end(tx, tp, ts), jtwist.warp_to_end(jx, jp, js)),
+        (ttwist.to_relative_motion(tx), jtwist.to_relative_motion(jx)),
+        (ttwist.from_mat(T), jtwist.from_mat(jT)),
+        (tse3.transform_associate(T[0], T[1], T[2]),
+         jse3.transform_associate(jT[0], jT[1], jT[2])),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_empty_cloud_matches():
+    got, want = tcloud.empty(5), jcloud.empty(5)
+    for f in ("xyz", "mask", "ring", "rel_time"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+
+
 def test_se3_exp_log_match():
     rng = np.random.RandomState(3)
     # both Taylor branches: small (|w| < 1e-2) and regular rotations

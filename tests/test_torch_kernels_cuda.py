@@ -1,4 +1,5 @@
-"""The CUDA kernels (races, k-NN) against their plain PyTorch versions, on a card.
+"""The CUDA kernels (races, fused races, k-NN) against their plain PyTorch
+versions, and the cube map on the card against the CPU.
 
 These tests need an NVIDIA card and skip without one.  The file imports no
 JAX, so it also runs on a machine that has none:
@@ -59,7 +60,65 @@ def test_kernels_equal_plain_versions(cuda, per_problem, Q, M):
                zip(races.bc_races(*args), races.bc_races_plain(*args)))
     torch.cuda.synchronize()
     after = [k.launches for k in races.KERNELS]
-    assert [a - b for a, b in zip(after, before)] == [1, 2, 1]
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("Q,M", [(256, 2048), (1024, 8192), (100, 1000)])
+def test_fused_kernel_equals_plain_and_split_kernels(cuda, per_problem, Q, M):
+    # the single-stream shapes, a ragged one; bit for bit against the plain
+    # version everywhere, and against nn1 -> bc_races / nn1_masked("adj")
+    # on every query whose A is a valid point
+    q, xyz, ring, mask = _problem(13, 2, Q, M, per_problem, cuda)
+    q[:, :7] = 1e6                                  # FAR queries, as invalid points sit
+    before = races.fused_races.launches
+    for with_same in (True, False):
+        got = races.fused_races(q, xyz, ring, mask, with_same, SPAN)
+        want = races.fused_races_plain(q, xyz, ring, mask, with_same, SPAN)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        ia, da = races.nn1(q, xyz, mask)
+        ring_a = take_ref(ring, ia, not per_problem)
+        split = (ia, da) + (races.bc_races(q, ring_a, ia, xyz, ring, mask, SPAN) if with_same
+                            else races.nn1_masked(q, ring_a, ia, xyz, ring, mask, "adj", SPAN))
+        a_valid = take_ref(mask, ia, not per_problem)
+        assert all(torch.equal(a[a_valid], b[a_valid]) for a, b in zip(got, split))
+    torch.cuda.synchronize()
+    assert races.fused_races.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_feature_map_round_trip_on_card(cuda):
+    # insert, recentre and surround gather of the cube map on the card equal
+    # the CPU run (the same stable sorts and in-range scatters)
+    from cooper_mapper_torch.config import MapConfig
+    from cooper_mapper_torch.maps import feature_map as fm
+    from cooper_mapper_torch.utils import cloud
+
+    cfg = MapConfig(n_cubes=(7, 3, 7), cube_size=10.0, margin_cubes=1, corner_cube_capacity=64,
+                    surf_cube_capacity=128, surround_corner_capacity=2048,
+                    surround_surf_capacity=4096, valid_distance=20.0, vfov_up_deg=10.0,
+                    vfov_down_deg=15.0)
+    rng = np.random.RandomState(3)
+    maps = {d: fm.create(cfg, d) for d in ("cpu", cuda)}
+    for pos in ([0.0, 0.0, 0.0], [24.0, 3.0, -17.0], [41.0, -2.0, -30.0]):
+        xyz = rng.uniform(-40, 60, (4000, 3)).astype(np.float32)
+        mask = rng.rand(4000) > 0.05
+        outs = {}
+        for d, m in maps.items():
+            c = cloud.make(torch.from_numpy(xyz).to(d), torch.from_numpy(mask).to(d))
+            p = torch.tensor(pos, device=d)
+            fm.recenter(m, p, cfg)
+            fm.add_feature_cloud(m, c, c, cfg)
+            outs[d] = fm.get_surround(m, p, cfg)
+        gpu, cpu = maps[cuda], maps["cpu"]
+        for cc_g, cc_c in ((gpu.corner, cpu.corner), (gpu.surf, cpu.surf)):
+            # the slots; the guard row's xyz is whichever dropped point won
+            assert torch.equal(cc_g.xyz.cpu(), cc_c.xyz) and torch.equal(cc_g.mask.cpu(), cc_c.mask)
+            assert torch.equal(cc_g.count.cpu(), cc_c.count)
+        assert torch.equal(gpu.origin.cpu(), cpu.origin)
+        for g, c in zip(outs[cuda], outs["cpu"]):
+            assert torch.equal(g.xyz.cpu(), c.xyz) and torch.equal(g.mask.cpu(), c.mask)
 
 
 @pytest.mark.cuda
@@ -118,3 +177,21 @@ def test_knn_ties_and_sparse_reference_on_card(cuda):
     assert all(torch.equal(a, b) for a, b in zip((idx, d), knn.knn_plain(q, r2, mask)))
     with pytest.raises(ValueError):
         knn.knn(q, r[:4].contiguous(), mask[:4].contiguous())
+
+
+@pytest.mark.cuda
+def test_voxel_filter_on_card_is_deterministic(cuda):
+    # the centroid sums add each voxel's points in index order, so two card
+    # runs agree bit for bit, and with the CPU's ordered f32 sums
+    from cooper_mapper_torch.ops.voxel import voxel_downsample
+    from cooper_mapper_torch.utils import cloud
+
+    rng = np.random.RandomState(9)
+    xyz = torch.from_numpy((rng.randn(20000, 3) * 3).astype(np.float32))
+    xyz[:5000] = xyz[:5000] * 0.01 + 25.0          # dense voxels: long sums
+    mask = torch.from_numpy(rng.rand(20000) > 0.1)
+    cpu = voxel_downsample(cloud.make(xyz, mask), 0.4)
+    runs = [voxel_downsample(cloud.make(xyz.to(cuda), mask.to(cuda)), 0.4) for _ in range(2)]
+    assert torch.equal(runs[0].xyz, runs[1].xyz) and torch.equal(runs[0].mask, runs[1].mask)
+    assert torch.equal(runs[0].mask.cpu(), cpu.mask)
+    assert torch.equal(runs[0].xyz.cpu(), cpu.xyz)

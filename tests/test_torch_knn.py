@@ -119,7 +119,7 @@ def test_plain_chunks_change_nothing(monkeypatch):
     tq, tr, tm = map(torch.from_numpy, (q, r, mask))
     whole = tknn.knn_plain(tq, tr[0], tm[0], K)
     per = tknn.knn_plain(tq, tr, tm, K)
-    monkeypatch.setattr(tknn, "_PLAIN_CHUNK_ELEMS", 700 * 37)
+    monkeypatch.setattr(tknn, "_PLAIN_CHUNK_ELEMS", {"cpu": 700 * 37, "cuda": 700 * 37})
     assert all(torch.equal(a, b) for a, b in zip(whole, tknn.knn_plain(tq, tr[0], tm[0], K)))
     assert all(torch.equal(a, b) for a, b in zip(per, tknn.knn_plain(tq, tr, tm, K)))
 
@@ -157,9 +157,25 @@ def test_cpu_tensors_run_the_plain_version():
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
 
 
+@pytest.mark.parametrize("n_vals", [3, 9])
+def test_first_k_under_ties_of_special_values(n_vals):
+    # negative values, -0.0 beside +0.0, infinities, NaN and heavy ties
+    # (3 values: the k-th value shared by a third of the columns): every row
+    # equals the first k columns of a stable sort
+    rng = np.random.RandomState(7)
+    vals = np.array([np.nan, 1e12, -1e12, -3.5, -0.0, 0.0, 2.0, np.inf, -np.inf],
+                    np.float32)[:n_vals]
+    d = torch.from_numpy(vals[rng.randint(0, n_vals, (64, 50))])
+    sv, si = torch.sort(d, dim=-1, stable=True)
+    idx, v = tknn._first_k(d.clone(), K)
+    assert torch.equal(idx, si[:, :K].to(torch.int32))
+    assert torch.equal(v.isnan(), sv[:, :K].isnan())
+    assert torch.equal(v.nan_to_num(), sv[:, :K].nan_to_num())
+
+
 def test_first_k_equals_the_stable_sort_under_ties():
-    # heavy ties (integer distances): the rows topk cannot answer go to the
-    # stable sort, and every row equals the first k columns of a stable sort
+    # heavy ties (integer distances): the rows topk cannot answer go to
+    # _first_k_tied, and every row equals the first k columns of a stable sort
     rng = np.random.RandomState(6)
     d = torch.from_numpy(rng.randint(0, 8, (64, 40)).astype(np.float32))
     d[:8] = torch.arange(40, dtype=torch.float32)     # tie-free rows
