@@ -58,7 +58,8 @@ Phases, each announced on its own line as it starts:
    kernels (nn1 -> bc_races / nn1_masked "adj") on every query whose race-A
    winner is valid; the split kernels against their plain versions, bit for
    bit on every query, at the B = 1 shapes; kernel, plain and library times
-   beside the bound;
+   beside the bound, for the fused kernel and for bc_races at the B = 1 surf
+   shape (1 x 1024 vs 8192), where it splits M across blocks;
 9. the single-stream drive on the split route (the default), with
    ``COOPER_PALLAS_FUSED=1``, and on the split route again, every launch
    counter at 0 before each: per odometry sweep 10 + 5 + 5 split race
@@ -71,8 +72,8 @@ Phases, each announced on its own line as it starts:
 10. the k-NN kernel against ``knn_plain``, bit for bit, on a mapping sweep's
    own searches: sweep 4's prepared frame (1 x 8192 surf, 1 x 2048 corner)
    registered at the merge guess against the surround (65536 / 32768) of
-   the map that sweeps 0..3 built; kernel, plain and library times beside
-   the bound;
+   the map that sweeps 0..3 built, where the kernel splits M across blocks
+   (the plan is printed); kernel, plain and library times beside the bound;
 11. localization on phase 9's map over a second drive 0.8 m to the side, seeded
    0.3 m / 0.035 rad off (tests/test_localization.py's perturbation): the
    steady error (mean from the third solve on) below half the seed error,
@@ -80,7 +81,11 @@ Phases, each announced on its own line as it starts:
 12. the card against the CPU at the reduced configuration of
    tests/test_pipeline.py::TestFusedSteps (16 x 512 sweeps, a 7 x 3 x 7
    map, 6 sweeps): every pose within 2e-3;
-13. a ``kernels`` JSON line, then the result line.
+13. a ``kernels`` JSON line (the knn and bc_races rows carry their times at
+   the single-stream shapes of phases 8 and 10 under ``single_stream``,
+   with the split route's launches in the phase 9 drive; beside
+   ``launches``, their ``merges`` count the calls that split M and so also
+   launched the merge kernel), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -147,10 +152,18 @@ def kernels():
 def reset_launches():
     for k in kernels():
         k.launches = 0
+        if hasattr(k, "merges"):
+            k.merges = 0
 
 
 def read_launches():
     return {k.__name__: k.launches for k in kernels()}
+
+
+def read_merges():
+    """Calls of the split searches (knn, bc_races) that split M across
+    blocks and so also launched their merge kernel."""
+    return {k.__name__: k.merges for k in kernels() if hasattr(k, "merges")}
 
 
 def fail(msg):
@@ -265,10 +278,19 @@ def race_bytes(B, Q, M, n_out, with_ring):
     return inputs + n_out * B * Q * 8
 
 
+def race_a_ring(q, ref):
+    """(ring_a, ia): race A's winner (plain version) and its stored ring, the
+    inputs of the ring races."""
+    from cooper_mapper_torch.ops import neighbors, races
+
+    ia, _ = races.nn1_plain(q, ref.xyz, ref.mask)
+    return neighbors.take_ref(ref.ring, ia, ref.xyz.dim() == 2), ia
+
+
 def kernel_phase(sharp, flat, ref_c, ref_s, x0):
     """Each race kernel against its plain version on the main path's inputs:
     the de-warped query clouds of the first correspondence refresh."""
-    from cooper_mapper_torch.ops import neighbors, races
+    from cooper_mapper_torch.ops import races
     from cooper_mapper_torch.utils import twist
 
     log("[3] kernels vs plain versions at the main path's shapes")
@@ -277,10 +299,6 @@ def kernel_phase(sharp, flat, ref_c, ref_s, x0):
     B = qc.shape[0]
     span = 2.5
     rows = {}
-
-    def ring_inputs(q, ref):
-        ia, _ = races.nn1_plain(q, ref.xyz, ref.mask)
-        return neighbors.take_ref(ref.ring, ia, ref.xyz.dim() == 2), ia
 
     # race A: corner and surf searches, shared reference; surf per problem too
     errs = []
@@ -295,7 +313,7 @@ def kernel_phase(sharp, flat, ref_c, ref_s, x0):
     rows["nn1"] = dict(err=max(errs), q=qs, ref=ref_s)
 
     # ring race, "adj" (corner race B, on the main path) and "same"
-    ra, ia = ring_inputs(qc, ref_c)
+    ra, ia = race_a_ring(qc, ref_c)
     errs = []
     for mode in ("adj", "same"):
         args = (qc, ra, ia, ref_c.xyz, ref_c.ring, ref_c.mask, mode, span)
@@ -306,7 +324,7 @@ def kernel_phase(sharp, flat, ref_c, ref_s, x0):
     # surf races B and C, shared and per-problem reference
     errs = []
     for tag, ref in (("shared", ref_s), ("per-problem", ref_sb)):
-        ra_s, ia_s = ring_inputs(qs, ref)
+        ra_s, ia_s = race_a_ring(qs, ref)
         args = (qs, ra_s, ia_s, ref.xyz, ref.ring, ref.mask, span)
         k, p = races.bc_races(*args), races.bc_races_plain(*args)
         errs.append(compare_race(f"bc_races B {tag}", k[:2], p[:2]))
@@ -316,61 +334,72 @@ def kernel_phase(sharp, flat, ref_c, ref_s, x0):
     rows["bc_races"]["err"] = max(errs)
 
     # times at the main path's dominant shape of each kernel
-    log("    times (CUDA events; wrapper calls; plain = the PyTorch version on the card; "
-        "library = torch.cdist chain)")
-    big = torch.tensor(races.BIG, device=qs.device)
-    out = {}
-    for name, r in rows.items():
-        q, ref = r["q"], r["ref"]
-        Bq, Q, _ = q.shape
-        M = ref.xyz.shape[0]
-        rexp = ref.xyz[None].expand(Bq, M, 3)
-        inval = ~ref.mask
-        if name == "nn1":
-            kern = lambda: races.nn1(q, ref.xyz, ref.mask)
-            plain = lambda: races.nn1_plain(q, ref.xyz, ref.mask)
-            lib = lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big).min(-1)
-            n_out, with_ring = 1, False
+    log(f"    times ({RACE_TIMES})")
+    return {name: race_times(name, r["q"], r["ref"], r["err"], r.get("ra"), r.get("ia"), span)
+            for name, r in rows.items()}
+
+
+RACE_TIMES = ("CUDA events; wrapper calls; plain = the PyTorch version on the card; "
+              "library = torch.cdist chain")
+
+
+def race_times(name, q, ref, err, ra=None, ia=None, span=2.5):
+    """A split race kernel's, plain version's and library chain's ms on a
+    shared reference, beside the bound; logged and returned as a kernels-line
+    row.  ``name`` is nn1, nn1_masked ("adj") or bc_races; the ring races
+    take A's ring ``ra`` and index ``ia``."""
+    from cooper_mapper_torch.ops import races
+
+    Bq, Q, _ = q.shape
+    M = ref.xyz.shape[0]
+    big = torch.tensor(races.BIG, device=q.device)
+    rexp = ref.xyz[None].expand(Bq, M, 3)
+    inval = ~ref.mask
+    if name == "nn1":
+        kern = lambda: races.nn1(q, ref.xyz, ref.mask)
+        plain = lambda: races.nn1_plain(q, ref.xyz, ref.mask)
+        lib = lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big).min(-1)
+        n_out, with_ring = 1, False
+    else:
+        ra_f = ra.float()[..., None]
+        ringf = torch.where(ref.mask, ref.ring.float(),
+                            torch.tensor(races.RING_INVALID, device=q.device))
+        cols = torch.arange(M, device=q.device, dtype=torch.int32)
+
+        def adj_ok():
+            rd = (ringf - ra_f).abs_()
+            return (rd > 0) & (rd <= span)
+
+        if name == "nn1_masked":
+            args = (q, ra, ia, ref.xyz, ref.ring, ref.mask, "adj", span)
+            kern = lambda: races.nn1_masked(*args)
+            plain = lambda: races.nn1_masked_plain(*args)
+            lib = lambda: torch.cdist(q, rexp).square_().masked_fill_(~adj_ok(), big).min(-1)
+            n_out, with_ring = 1, True
         else:
-            ra_f = r["ra"].float()[..., None]
-            ringf = torch.where(ref.mask, ref.ring.float(), torch.tensor(races.RING_INVALID, device=q.device))
-            cols = torch.arange(M, device=q.device, dtype=torch.int32)
+            args = (q, ra, ia, ref.xyz, ref.ring, ref.mask, span)
+            kern = lambda: races.bc_races(*args)
+            plain = lambda: races.bc_races_plain(*args)
 
-            def adj_ok():
-                rd = (ringf - ra_f).abs_()
-                return (rd > 0) & (rd <= span)
-
-            if name == "nn1_masked":
-                args = (q, r["ra"], r["ia"], ref.xyz, ref.ring, ref.mask, "adj", span)
-                kern = lambda: races.nn1_masked(*args)
-                plain = lambda: races.nn1_masked_plain(*args)
-                lib = lambda: torch.cdist(q, rexp).square_().masked_fill_(~adj_ok(), big).min(-1)
-                n_out, with_ring = 1, True
-            else:
-                args = (q, r["ra"], r["ia"], ref.xyz, ref.ring, ref.mask, span)
-                kern = lambda: races.bc_races(*args)
-                plain = lambda: races.bc_races_plain(*args)
-
-                def lib():
-                    d = torch.cdist(q, rexp).square_()
-                    same = (ringf == ra_f) & (cols != r["ia"][..., None])
-                    db = d.masked_fill(~same, big).min(-1)
-                    return db, d.masked_fill_(~adj_ok(), big).min(-1)
-                n_out, with_ring = 2, True
-        ms = time_ms(kern, reps=20)
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        library_ms = time_ms(lib, reps=3, warmup=1)
-        pairs = Bq * Q * M
-        t_ops = pairs * OPS_PER_PAIR[name] / FP32_PEAK_OPS * 1e3
-        t_bytes = race_bytes(Bq, Q, M, n_out, with_ring) / HBM_BYTES_PER_S * 1e3
-        out[name] = dict(shape=f"{Bq}x{Q} vs {M}", pairs=pairs, err=r["err"], ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes")
-        log(f"    {name} [{Bq}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
-            f"bound {out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
-    return out
+            def lib():
+                d = torch.cdist(q, rexp).square_()
+                same = (ringf == ra_f) & (cols != ia[..., None])
+                db = d.masked_fill(~same, big).min(-1)
+                return db, d.masked_fill_(~adj_ok(), big).min(-1)
+            n_out, with_ring = 2, True
+    ms = time_ms(kern, reps=20)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    library_ms = time_ms(lib, reps=3, warmup=1)
+    pairs = Bq * Q * M
+    t_ops = pairs * OPS_PER_PAIR[name] / FP32_PEAK_OPS * 1e3
+    t_bytes = race_bytes(Bq, Q, M, n_out, with_ring) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{Bq}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"    {name} [{Bq}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
 
 
 def lane_errors(x, motion):
@@ -390,11 +419,12 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     reset_launches()
     x, st = odometry.batch_odometry_solve(sharp, flat, ref_c, ref_s, x0, cfg)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches, merges = read_launches(), read_merges()
     n_blocks = -(-cfg.max_iterations // cfg.refresh_every)
     expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks,
                 "fused_races": 0, "knn": 0}
-    log(f"    launches in the main-path run: {launches} (expected {expected})")
+    log(f"    launches in the main-path run: {launches} (expected {expected}); of them "
+        f"split with a merge launch: {merges}")
     if launches != expected or min(launches[k] for k in ("nn1", "nn1_masked", "bc_races")) <= 0:
         fail("the main path did not launch every kernel as expected")
     if not torch.isfinite(x).all():
@@ -436,7 +466,7 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
         f"rotation error max {float(re_.max()):.5f} rad (< {ROT_TOL})")
     if not (torch.isfinite(xg).all() and (te < TRANS_TOL).all() and (re_ < ROT_TOL).all()):
         fail("lanes outside the ground-truth bounds")
-    return launches, B / best, B / med
+    return launches, merges, B / best, B / med
 
 
 def scan_match_poses():
@@ -592,10 +622,11 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     reset_launches()
     res = sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, x0, cfg)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches, merges = read_launches(), read_merges()
     expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 0,
                 "knn": 2 * (cfg.max_iterations + 1)}
-    log(f"    launches in the scan-to-map run: {launches} (expected {expected})")
+    log(f"    launches in the scan-to-map run: {launches} (expected {expected}); of them "
+        f"split with a merge launch: {merges}")
     if launches != expected:
         fail("the scan-to-map path did not launch the k-NN kernel as expected")
     if not torch.isfinite(res.x).all():
@@ -637,7 +668,7 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     if not (torch.isfinite(loc.x).all() and dx <= CPU_TOL
             and bool(loc.success) == bool(loc_cpu.success)):
         fail("scan_match_local on the card disagrees with the CPU")
-    return launches, B / best, B / med
+    return launches, merges, B / best, B / med
 
 
 def fused_bytes(B, Q, M, n_races):
@@ -704,8 +735,11 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
             compare_exact(f"{label} nn1 vs nn1_plain", (ia, da), races.nn1_plain(q, xyz, mask))
             plain = (races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, span) if with_same
                      else races.nn1_masked_plain(q, ring_a, ia, xyz, ring, mask, "adj", span))
-            compare_exact(f"{label} {'bc_races' if with_same else 'nn1_masked adj'} vs plain",
-                          split[2:], plain)
+            d_err = compare_exact(
+                f"{label} {'bc_races' if with_same else 'nn1_masked adj'} vs plain",
+                split[2:], plain)
+            if with_same:
+                bc_single = (q, ref, d_err, ring_a, ia)
 
     log("    times (CUDA events; plain = fused_races_plain on the card; library = "
         "torch.cdist chain: min, ring gather, masked mins)")
@@ -746,6 +780,8 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         log(f"    fused_races {label} [{row['shape']}, {pairs:.3g} pairs, blocks "
             f"{-(-Q // 128) * B}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
             f"{library_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    log(f"    bc_races at the single-stream surf shape, split across blocks ({RACE_TIMES})")
+    out["bc_races single-stream"] = race_times("bc_races", *bc_single, span)
     return out
 
 
@@ -776,7 +812,8 @@ def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
     cfg.mapping_stride-th sweep: every second at the default, as
     bench_realtime does) on ``device``.  Returns the state, the
     poses [n-1, 4, 4], the mapping successes, the ms per sweep of each kind
-    from sweep 3 on, and the launches of the whole drive."""
+    from sweep 3 on, and the launches of the whole drive (under "merges": the
+    split searches' calls that also launched a merge)."""
     import os
 
     from cooper_mapper_torch.models import fused
@@ -821,7 +858,7 @@ def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
                 fail(f"{label}: sweep {i} ({kind}) launched {got}, expected {want}")
     finally:
         os.environ["COOPER_PALLAS_FUSED"] = "0"
-    return st, np.stack(poses), oks, ms, total
+    return st, np.stack(poses), oks, ms, dict(total, merges=read_merges())
 
 
 def map_bytes(m):
@@ -896,18 +933,17 @@ def stream_phase(cfg, sweeps, truth, device):
     return runs, frame
 
 
-def mapping_knn_phase(cfg, sweeps, device):
-    """The k-NN kernel against knn_plain, bit for bit, on a mapping sweep's
-    own inputs: sweep 4's prepared frame registered at the merge guess
-    against the surround of the map that sweeps 0..3 built.  These are the
-    first residual build's searches of that sweep's mapping_step, taken
-    stage by stage."""
+def mapping_knn_inputs(cfg, sweeps, device):
+    """A mapping sweep's own k-NN searches: sweep 4's prepared frame
+    registered at the merge guess against the surround of the map that sweeps
+    0..3 built, the first residual build's searches of that sweep's
+    mapping_step, taken stage by stage.  Returns {tag: (q [1, Q, 3], frame,
+    surround)} for "surf" and "corner"."""
     from cooper_mapper_torch.maps import feature_map as fm
     from cooper_mapper_torch.models import laser_mapping, laser_odometry
-    from cooper_mapper_torch.ops import features, knn
+    from cooper_mapper_torch.ops import features
     from cooper_mapper_torch.utils import twist
 
-    log("[10] k-NN kernel vs knn_plain at the mapping sweep's shapes (sweep 4's inputs)")
     st = drive_stream(cfg, sweeps[:4], device, False, "sweeps 0..3")[0]
     fc = features.extract_features(sweeps[4], cfg.registration)
     _, odo_out = laser_odometry.step(st.odo, fc, cfg.odometry)
@@ -918,22 +954,43 @@ def mapping_knn_phase(cfg, sweeps, device):
     ref_c, ref_s = fm.get_surround(fm.recenter(st.map, pos, cfg.feature_map), pos,
                                    cfg.feature_map)
     x = twist.from_mat(T_guess)[None]
-    queries = {}
-    for tag, frame, ref in (("surf", surf_ds, ref_s), ("corner", corner_ds, ref_c)):
-        q = queries[tag] = twist.point_to_map(x, frame.xyz[None]).contiguous()
+    return {tag: (twist.point_to_map(x, frame.xyz[None]).contiguous(), frame, ref)
+            for tag, frame, ref in (("surf", surf_ds, ref_s), ("corner", corner_ds, ref_c))}
+
+
+def mapping_knn_phase(cfg, sweeps, device):
+    """The k-NN kernel against knn_plain, bit for bit, on a mapping sweep's
+    own inputs (``mapping_knn_inputs``), where it splits M across blocks;
+    its times there, as kernels-line rows."""
+    from cooper_mapper_torch.ops import knn, races
+
+    log("[10] k-NN kernel vs knn_plain at the mapping sweep's shapes (sweep 4's inputs)")
+    inputs = mapping_knn_inputs(cfg, sweeps, device)
+    n_sm = races.sm_count(device)
+    errs = {}
+    for tag, (q, frame, ref) in inputs.items():
         ik, dk = knn.knn(q, ref.xyz, ref.mask, KNN_K)
         ip, dp = knn.knn_plain(q, ref.xyz, ref.mask, KNN_K)
         torch.cuda.synchronize()
         n_bad = int((ik != ip).sum())
+        errs[tag] = float((dk - dp).abs().max())
+        S, L = knn._split_plan(1, q.shape[1], ref.xyz.shape[0], n_sm,
+                               knn_block_queries(KNN_K))
         log(f"    knn {tag} {tuple(q.shape)} ({int(frame.mask.sum())} valid) vs "
-            f"{tuple(ref.xyz.shape)} ({int(ref.mask.sum())} valid): index mismatches {n_bad}, "
-            f"max |dd| {float((dk - dp).abs().max()):.3g}, valid queries' 5th-NN inside the "
-            f"5 m^2 gate {float((dp[0, frame.mask, -1] < 5.0).float().mean()):.3f}")
+            f"{tuple(ref.xyz.shape)} ({int(ref.mask.sum())} valid), split S={S} chunks of "
+            f"L={L} on {n_sm} SMs: index mismatches {n_bad}, max |dd| {errs[tag]:.3g}, valid "
+            f"queries' 5th-NN inside the 5 m^2 gate "
+            f"{float((dp[0, frame.mask, -1] < 5.0).float().mean()):.3f}")
         if n_bad or not torch.equal(dk, dp):
             fail(f"knn {tag} at the mapping sweep's shape disagrees with knn_plain")
     log(f"    times ({KNN_TIMES})")
-    for tag, ref in (("surf", ref_s), ("corner", ref_c)):
-        knn_times(tag, queries[tag], ref, 0.0)
+    return {tag: knn_times(tag, q, ref, errs[tag]) for tag, (q, _, ref) in inputs.items()}
+
+
+def knn_block_queries(k):
+    from cooper_mapper_torch.build import library
+
+    return library().cooper_knn_block_queries(k)
 
 
 def localization_phase(map_state, frame, cfg, device, **world):
@@ -1031,7 +1088,7 @@ def main():
     x0 = torch.from_numpy((0.02 * np.random.RandomState(0).randn(BATCH, 6))
                           .astype(np.float32)).to(device)
     kern = kernel_phase(sharp, flat, ref_c, ref_s, x0)
-    launches, sps_best, sps_med = solve_phase(sharp, flat, ref_c, ref_s, x0, motion)
+    launches, merges, sps_best, sps_med = solve_phase(sharp, flat, ref_c, ref_s, x0, motion)
 
     log("[6] scan-to-map problem (bench_scan_match.build_problem, ported) on the card")
     corner, surf, map_c, map_s = make_scan_match_problem(device)
@@ -1042,17 +1099,21 @@ def main():
     x0_sm = torch.from_numpy((0.02 * np.random.RandomState(0).randn(SM_BATCH, 6))
                              .astype(np.float32)).to(device)
     knn_rows = knn_kernel_phase(corner, surf, map_c, map_s, x0_sm)
-    sm_launches, sm_best, sm_med = scan_match_phase(corner, surf, map_c, map_s, x0_sm)
-    launches["knn"] = sm_launches["knn"]
+    sm_launches, sm_merges, sm_best, sm_med = scan_match_phase(corner, surf, map_c, map_s,
+                                                               x0_sm)
+    launches["knn"], merges["knn"] = sm_launches["knn"], sm_merges["knn"]
     kern["knn"] = knn_rows["surf"]
 
     ss_cfg, sweeps, truth, ss_clouds = make_stream(device)
     fused_rows = fused_kernel_phase(ss_clouds, (sharp.xyz, flat.xyz, ref_c, ref_s))
     runs, frame = stream_phase(ss_cfg, sweeps, truth, device)
     launches["fused_races"] = runs["fused"]["launches"]["fused_races"]
+    ss_launches = runs["split"]["launches"]
     ss_stats = {r: dict(stat=v["stat"]) for r, v in runs.items()}
     kern["fused_races"] = fused_rows["single-stream surf"]
-    mapping_knn_phase(ss_cfg, sweeps, device)
+    # the B = 1 shapes of the split route, where the kernels split M
+    single_stream = {"bc_races": [fused_rows["bc_races single-stream"]],
+                     "knn": list(mapping_knn_phase(ss_cfg, sweeps, device).values())}
     loc_steady, loc_seed = localization_phase(runs["split"]["state"].map, frame, ss_cfg, device)
     del runs
     reduced_dx = reduced_card_vs_cpu_phase(device)
@@ -1062,13 +1123,22 @@ def main():
                "bc_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:301", "races.cu"),
                "fused_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:416", "races.cu"),
                "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
+    fields = lambda v: {"max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                        "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                        "library_ms": v["library_ms"], "shape": v["shape"]}
     rows = [{
         "name": k, "route": "cuda", "source": f"cooper_mapper_torch/csrc/{sources[k][1]}",
-        "replaces": sources[k][0], "launches": launches[k],
-        "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
-        "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-        "library_ms": v["library_ms"], "shape": v["shape"],
+        "replaces": sources[k][0], "launches": launches[k], **fields(v),
     } for k, v in kern.items()]
+    for row in rows:
+        if row["name"] in merges:
+            # of the launches, the calls that split M and launched the merge kernel too
+            row["merges"] = merges[row["name"]]
+        if row["name"] in single_stream:
+            # launches: the single-stream drive's on the split route
+            row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
+                                         merges=ss_launches["merges"][row["name"]])
+                                    for v in single_stream[row["name"]]]
     log(f"[13] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "

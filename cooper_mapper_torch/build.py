@@ -4,7 +4,8 @@ One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into
 ``_build/libcooper_kernels.so``, a shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds, not minutes), which
 ``ctypes`` loads.  The build runs at first use, under a file lock, and again
-whenever the sources' hash changes.  ``_build/`` is git-ignored.
+whenever the hash of the sources and the ``csrc/*.cuh`` headers they include
+changes.  ``_build/`` is git-ignored.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ build_seconds: float | None = None   # wall time of this process's build, if it 
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _digest(sources) -> str:
@@ -63,7 +68,7 @@ def build() -> str:
     """Compile the kernels if the library is missing or stale; return its path."""
     global build_seconds
     sources = _sources()
-    digest = _digest(sources)
+    digest = _digest(sources + _headers())
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
@@ -100,11 +105,15 @@ def library() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cooper_nn1.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
-        lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
+        lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,
+                                        P]
+        lib.cooper_bc_races_block_queries.argtypes = []
         lib.cooper_fused_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
-        lib.cooper_knn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+        lib.cooper_knn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+        lib.cooper_knn_block_queries.argtypes = [I]
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
-                   lib.cooper_fused_races, lib.cooper_knn):
+                   lib.cooper_fused_races, lib.cooper_knn, lib.cooper_bc_races_block_queries,
+                   lib.cooper_knn_block_queries):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -13,9 +13,12 @@ Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask
 ``[B, Q, k]``: int32 indices in ``[0, M)`` and f32 squared distances.
 
 Dispatch follows the device: a CPU tensor runs ``knn_plain``, a CUDA tensor
-launches the kernel (``csrc/knn.cu``, k = 5) or raises.  Kernel and plain
-version evaluate the distance with the same f32 operations in the same order
-(``races.pairwise_sq_dist``), so they agree bit for bit.
+launches the kernel (``csrc/knn.cu``, k = 5 or 10) or raises.  Where the
+query blocks would not give every SM of the card one (B = 1), the kernel
+splits M across blocks and merges their sorted lists in chunk order
+(``races._split_plan``, ``csrc/split.cuh``): the same bits as one scan.
+Kernel and plain version evaluate the distance with the same f32 operations
+in the same order (``races.pairwise_sq_dist``), so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import races
+from .races import _split_plan
 
 # Elements of one distance chunk of the plain version ([b, q, M] f32, plus
 # its temporaries): ~64 MB at 2^24 keeps the card's launches few; on the CPU
@@ -114,20 +118,34 @@ def knn(q, r_xyz, r_mask, k: int = 5):
     (distance, index)."""
     if not races._require_device(q):
         return knn_plain(q, r_xyz, r_mask, k)
+    return _knn_cuda(q, r_xyz, r_mask, k)
+
+
+def _knn_cuda(q, r_xyz, r_mask, k=5, plan=None):
+    """The k-NN kernel on CUDA tensors; ``plan`` = (S, L) overrides
+    ``_split_plan`` (the card tests pin chunk edges with it)."""
     from ..build import library
 
+    lib = library()
     B, Q, M, shared = _check_knn(q, r_xyz, r_mask, k)
-    if k != 5:
-        raise ValueError(f"the CUDA k-NN kernel is built for k = 5, got k={k}")
+    block_queries = lib.cooper_knn_block_queries(k)
+    if block_queries == 0:
+        raise ValueError(f"the CUDA k-NN kernel is built for k = 5 and 10, got k={k}")
+    S, L = plan or _split_plan(B, Q, M, races.sm_count(q.device), block_queries)
+    races._check_plan(S, L, M)
     rn = races._ref_norms(r_xyz, r_mask)
-    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
-    races._launch("knn", q, library().cooper_knn,
+    out = lambda dt, *lead: torch.empty(lead + (B, Q, k), dtype=dt, device=q.device)
+    out_d, out_i = out(torch.float32), out(torch.int32)
+    part_d, part_i = (out(torch.float32, S), out(torch.int32, S)) if S > 1 else (None, None)
+    races._launch("knn", q, lib.cooper_knn,
                   q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
-                  out_i.data_ptr(), B, Q, M, 0 if shared else M, k)
+                  out_i.data_ptr(), races._ptr(part_d), races._ptr(part_i), B, Q, M,
+                  0 if shared else M, k, S, L)
     knn.launches += 1
+    knn.merges += S > 1
     return out_i, out_d
 
 
 knn.launches = 0
+knn.merges = 0   # calls that split M and launched the merge (merge_first_k) too
 KERNELS = (knn,)

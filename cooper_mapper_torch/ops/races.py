@@ -23,7 +23,10 @@ ring ``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``).  Outputs are
 ``[B, Q]``: int32 indices and f32 squared distances.
 
 Dispatch follows the device: a CPU tensor runs the plain version, a CUDA
-tensor launches the kernel (``csrc/races.cu``) or raises.  An invalid
+tensor launches the kernel (``csrc/races.cu``) or raises.  Where the query
+blocks of a ``bc_races`` call would not give every SM of the card one, the
+kernel splits M across blocks and merges their results (``_split_plan``,
+``csrc/split.cuh``): the same bits as one scan over M.  An invalid
 reference point carries ``|r|^2 = BIG`` and ring ``1e9``; a candidate that
 fails a ring test has distance exactly ``BIG``.  Ties go to the smaller
 index.  Kernel and plain version evaluate the distance with the same f32
@@ -31,6 +34,8 @@ operations in the same order, so they agree bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,6 +45,37 @@ RING_INVALID = 1.0e9
 # Queries per chunk of the plain versions: bounds their [chunk, Q, M]
 # temporaries to ~2^26 elements per problem chunk.
 _PLAIN_CHUNK_ELEMS = 1 << 26
+
+# The split of M across blocks (csrc/split.cuh).  A grid of fewer query
+# blocks than the card has SMs is split into up to SPLIT_BLOCKS_PER_SM blocks
+# per SM (4 blocks of 4 warps: 4 warps per scheduler), each scanning at
+# least SPLIT_MIN_CHUNK reference points.
+SPLIT_BLOCKS_PER_SM = 4
+SPLIT_MIN_CHUNK = 64
+
+
+def _split_plan(B, Q, M, n_sm, block_queries):
+    """(S, L): the chunks of M a search kernel's blocks scan.  Block z scans
+    ``[z*L, min(M, (z+1)*L))``; the S chunks are non-empty and cover
+    ``[0, M)``.  S = 1 (the whole of M, no merge) when the ``B x
+    ceil(Q / block_queries)`` query blocks already give every SM one."""
+    blocks = B * -(-Q // block_queries)
+    if blocks >= n_sm:
+        return 1, M
+    S = max(1, min(-(-SPLIT_BLOCKS_PER_SM * n_sm // blocks), -(-M // SPLIT_MIN_CHUNK)))
+    L = -(-M // S)
+    return -(-M // L), L
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """Streaming multiprocessors of the CUDA ``device``."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def _check(name, t, dtype, shape, device):
@@ -289,20 +325,39 @@ def bc_races(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
     """Surf races B and C: (ib, db, ic, dc), each [B, Q]."""
     if not _require_device(q):
         return bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span)
+    return _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span)
+
+
+def _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span=2.5, plan=None):
+    """The bc_races kernel on CUDA tensors; ``plan`` = (S, L) overrides
+    ``_split_plan`` (the card tests pin chunk edges with it)."""
     from ..build import library
 
+    lib = library()
     B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask)
-    db = torch.empty((B, Q), dtype=torch.float32, device=q.device)
-    ib = torch.empty((B, Q), dtype=torch.int32, device=q.device)
-    dc = torch.empty((B, Q), dtype=torch.float32, device=q.device)
-    ic = torch.empty((B, Q), dtype=torch.int32, device=q.device)
-    _launch("bc_races", q, library().cooper_bc_races,
+    S, L = plan or _split_plan(B, Q, M, sm_count(q.device), lib.cooper_bc_races_block_queries())
+    _check_plan(S, L, M)
+    out = lambda dt, *lead: torch.empty(lead + (B, Q), dtype=dt, device=q.device)
+    db, ib, dc, ic = out(torch.float32), out(torch.int32), out(torch.float32), out(torch.int32)
+    part_d, part_i = ((out(torch.float32, 2, S), out(torch.int32, 2, S)) if S > 1
+                      else (None, None))
+    _launch("bc_races", q, lib.cooper_bc_races,
             q.data_ptr(), ra.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
             rn.data_ptr(), ring.data_ptr(), db.data_ptr(), ib.data_ptr(),
-            dc.data_ptr(), ic.data_ptr(), B, Q, M, 0 if shared else M,
-            float(ring_span))
+            dc.data_ptr(), ic.data_ptr(), _ptr(part_d), _ptr(part_i), B, Q, M,
+            0 if shared else M, float(ring_span), S, L)
     bc_races.launches += 1
+    bc_races.merges += S > 1
     return ib, db, ic, dc
+
+
+def _check_plan(S, L, M):
+    if not (S >= 1 and L >= 1 and (S - 1) * L < M <= S * L and S <= 65535):
+        raise ValueError(f"split plan S={S}, L={L} does not cover M={M} in non-empty chunks")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def fused_races(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.5):
@@ -329,5 +384,6 @@ def fused_races(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.
 nn1.launches = 0
 nn1_masked.launches = 0
 bc_races.launches = 0
+bc_races.merges = 0   # calls that split M and launched the merge (merge_min) too
 fused_races.launches = 0
 KERNELS = (nn1, nn1_masked, bc_races, fused_races)

@@ -45,9 +45,10 @@ import time
 import numpy as np
 import torch
 
-RACES = ("nn1_kernel", "masked_kernel", "bc_races_kernel", "fused_races_kernel")
-KERNEL_NAMES = {"odometry": RACES, "scan_match": ("knn_kernel",),
-                "stream": RACES + ("knn_kernel",)}
+# the port's own kernels, with the merges of a search split across blocks
+RACES = ("nn1_kernel", "masked_kernel", "bc_races_kernel", "fused_races_kernel", "merge_min")
+KNN = ("knn_kernel", "merge_first_k")
+KERNEL_NAMES = {"odometry": RACES, "scan_match": KNN, "stream": RACES + KNN}
 SM_STAGES = ("residual_build", "gn_step")
 STREAM_STAGES = ("extract", "odometry_solve", "prepare_frame", "recenter", "surround",
                  "scan_match", "insert")

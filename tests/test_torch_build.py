@@ -51,3 +51,17 @@ def test_one_nvcc_call_then_cached_until_a_source_changes(fake_toolkit):
     (csrc / "b.cu").write_text("// changed\n")
     build.build()
     assert len(log.read_text().splitlines()) == 2
+
+
+def test_a_header_change_rebuilds_and_headers_are_not_compiled(fake_toolkit):
+    # csrc/*.cuh are included by the sources: they enter the hash, not the
+    # compiler's file list
+    log, csrc = fake_toolkit
+    (csrc / "shared.cuh").write_text("// shared\n")
+    build.build()
+    assert ".cuh" not in log.read_text()
+    build.build()
+    assert len(log.read_text().splitlines()) == 1
+    (csrc / "shared.cuh").write_text("// changed\n")
+    build.build()
+    assert len(log.read_text().splitlines()) == 2

@@ -70,3 +70,13 @@ def test_module_list_covers_the_slice():
                 "ops.odometry", "ops.knn", "ops.scan_match", "models.laser_mapping",
                 "models.laser_odometry", "models.fused", "maps.feature_map"):
         assert f"cooper_mapper_torch.{mod}" in names
+
+
+@pytest.mark.parametrize("script", ["profile_torch_solve", "time_search_kernels"])
+def test_card_scripts_import_without_jax(script):
+    # the measurement scripts run on the card's machine too
+    res = _run(f"import sys; sys.path.insert(0, {ROOT!r})\n"
+               'sys.modules["jax"] = None\n'
+               'sys.modules["cooper_mapper_tpu"] = None\n'
+               f"import {script}\n")
+    assert res.returncode == 0, res.stderr

@@ -41,11 +41,14 @@ def _problem(seed, B, Q, M, per_problem, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("per_problem", [False, True])
-@pytest.mark.parametrize("Q,M", [(256, 256), (100, 1000), (768, 3840)])
-def test_kernels_equal_plain_versions(cuda, per_problem, Q, M):
-    # ragged shapes included: Q not a multiple of the 128-query block, M not
-    # a multiple of the 512-point reference tile
-    q, xyz, ring, mask = _problem(11, 4, Q, M, per_problem, cuda)
+@pytest.mark.parametrize("B,Q,M", [(4, 256, 256), (4, 100, 1000), (4, 768, 3840),
+                                   (1, 1024, 8192), (1, 256, 2048), (1, 1000, 8191),
+                                   (1, 333, 65536)])
+def test_kernels_equal_plain_versions(cuda, per_problem, B, Q, M):
+    # ragged shapes included: Q not a multiple of the query block, M not a
+    # multiple of the 512-point reference tile; the B = 1 shapes of the
+    # single-stream sweep, where bc_races splits M across blocks
+    q, xyz, ring, mask = _problem(11, B, Q, M, per_problem, cuda)
     before = [k.launches for k in races.KERNELS]
     ia, da = races.nn1(q, xyz, mask)
     pia, pda = races.nn1_plain(q, xyz, mask)
@@ -143,11 +146,13 @@ def test_ties_and_self_exclusion_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("per_problem", [False, True])
-@pytest.mark.parametrize("Q,M", [(256, 512), (100, 1000), (333, 5), (2048, 5888)])
-def test_knn_kernel_equals_plain_version(cuda, per_problem, Q, M):
-    # ragged Q (not a multiple of the 128-query block) and M (not a multiple
-    # of the 512-point tile), M == k, and the scan-to-map surf shape
-    q, xyz, _, mask = _problem(12, 3, Q, M, per_problem, cuda)
+@pytest.mark.parametrize("B,Q,M", [(3, 256, 512), (3, 100, 1000), (3, 333, 5), (3, 2048, 5888),
+                                   (1, 8192, 65536), (1, 2048, 32768), (1, 1000, 7777)])
+def test_knn_kernel_equals_plain_version(cuda, per_problem, B, Q, M):
+    # ragged Q (not a multiple of the query block) and M (not a multiple of
+    # the 512-point tile), M == k, the scan-to-map surf shape and the
+    # mapping sweep's B = 1 shapes, where the kernel splits M across blocks
+    q, xyz, _, mask = _problem(12, B, Q, M, per_problem, cuda)
     before = knn.knn.launches
     got = knn.knn(q, xyz, mask)
     want = knn.knn_plain(q, xyz, mask)
@@ -195,3 +200,147 @@ def test_voxel_filter_on_card_is_deterministic(cuda):
     assert torch.equal(runs[0].xyz, runs[1].xyz) and torch.equal(runs[0].mask, runs[1].mask)
     assert torch.equal(runs[0].mask.cpu(), cpu.mask)
     assert torch.equal(runs[0].xyz.cpu(), cpu.xyz)
+
+
+# ---------------------------------------------------------------------------
+# The split of M across blocks: forced chunkings against the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _plan(M, S):
+    """A valid (S, L) with about S non-empty chunks of M."""
+    L = -(-M // S)
+    return -(-M // L), L
+
+
+def _tied(seed, B, Q, M, device, edges=()):
+    """Integer-grid points (heavy ties), duplicates on both sides of each edge."""
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-3, 4, (B, Q, 3)).astype(np.float32)
+    xyz = rng.randint(-3, 4, (M, 3)).astype(np.float32)
+    for e in edges:
+        xyz[e - 2:e + 2] = xyz[e - 2]
+    ring = rng.randint(0, 4, M).astype(np.int32)
+    mask = rng.rand(M) > 0.1
+    return tuple(torch.from_numpy(a).to(device) for a in (q, xyz, ring, mask))
+
+
+@pytest.mark.cuda
+def test_split_plan_fills_the_card_at_the_single_stream_shapes(cuda):
+    n_sm = races.sm_count(cuda)
+    assert n_sm == torch.cuda.get_device_properties(cuda).multi_processor_count
+    lib = __import__("cooper_mapper_torch.build", fromlist=["library"]).library()
+    for Q, M, bq in ((8192, 65536, lib.cooper_knn_block_queries(5)),
+                     (2048, 32768, lib.cooper_knn_block_queries(5)),
+                     (1024, 8192, lib.cooper_bc_races_block_queries())):
+        S, L = races._split_plan(1, Q, M, n_sm, bq)
+        assert S > 1 and -(-Q // bq) * S >= n_sm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("M,S", [(600, 4), (600, 6), (41, 8), (51, 10), (41, 41), (1300, 13)])
+def test_knn_split_equals_plain_under_ties_at_chunk_edges(cuda, k, M, S):
+    # duplicates straddling the chunk edges, M just above k x S, chunks
+    # shorter than k (one point each at S = M), several chunks per tile
+    plan = _plan(M, S)
+    q, xyz, _, mask = _tied(5, 2, 300, M, cuda, edges=range(plan[1], M, plan[1]))
+    before = knn.knn.launches
+    got = knn._knn_cuda(q, xyz, mask, k, plan=plan)
+    want = knn.knn_plain(q, xyz, mask, k)
+    torch.cuda.synchronize()
+    assert knn.knn.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 13, 130])
+def test_knn_duplicates_spread_over_chunks(cuda, S):
+    # one point repeated over many chunks: the first k indices, in order
+    q = torch.tensor([[1.0, 2.0, 3.0]], device=cuda).repeat(700, 1)[None].contiguous()
+    r = torch.tensor([[1.0, 2.0, 3.0]], device=cuda).repeat(1300, 1)
+    mask = torch.ones(1300, dtype=torch.bool, device=cuda)
+    for k in (5, 10):
+        idx, d = knn._knn_cuda(q, r, mask, k, plan=_plan(1300, S))
+        assert (idx == torch.arange(k, device=cuda, dtype=torch.int32)).all()
+        assert float(d.abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 7])
+def test_nan_query_comes_back_inf_and_first_slots(cuda, S):
+    # a NaN distance never enters (ROADMAP: the kernels differ from the
+    # plain versions here); the split keeps that: k-NN (+inf, 0..k-1),
+    # bc_races B / C the first candidate whose ring test fails (distance
+    # BIG), else (+inf, 0)
+    q, xyz, ring, mask = _tied(6, 1, 200, 900, cuda)
+    q[0, 17] = float("nan")
+    keep = torch.arange(200, device=cuda) != 17
+    for k in (5, 10):
+        idx, d = knn._knn_cuda(q, xyz, mask, k, plan=_plan(900, S))
+        assert torch.isinf(d[0, 17]).all() and idx[0, 17].tolist() == list(range(k))
+        want = knn.knn_plain(q, xyz, mask, k)
+        assert torch.equal(idx[0, keep], want[0][0, keep])
+        assert torch.equal(d[0, keep], want[1][0, keep])
+    ia, _ = races.nn1(q, xyz, mask)
+    ia[0, 17] = 3
+    ring_a = take_ref(ring, ia, True)
+    ib, db, ic, dc = races._bc_races_cuda(q, ring_a, ia, xyz, ring, mask, SPAN, plan=_plan(900, S))
+    ringf = torch.where(mask, ring.float(), torch.tensor(races.RING_INVALID, device=cuda))
+    rd = (ringf - ring_a[0, 17].float()).abs()
+    cols = torch.arange(900, device=cuda)
+    for (i, dist), ok in (((ib, db), (rd == 0) & (cols != 3)), ((ic, dc), (rd > 0) & (rd <= SPAN))):
+        fails = (~ok).nonzero()
+        want = (float(np.float32(races.BIG)), int(fails[0])) if len(fails) else (float("inf"), 0)
+        assert (float(dist[0, 17]), int(i[0, 17])) == want
+    plain = races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, SPAN)
+    assert all(torch.equal(a[0, keep], b[0, keep]) for a, b in zip((ib, db, ic, dc), plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,S", [(600, 4), (41, 8), (41, 41), (8192, 128)])
+def test_bc_races_split_equals_plain_under_ties_at_chunk_edges(cuda, M, S):
+    plan = _plan(M, S)
+    q, xyz, ring, mask = _tied(7, 2, 300, M, cuda, edges=range(plan[1], M, plan[1]))
+    ia, _ = races.nn1(q, xyz, mask)
+    ring_a = take_ref(ring, ia, True)
+    before = races.bc_races.launches
+    got = races._bc_races_cuda(q, ring_a, ia, xyz, ring, mask, SPAN, plan=plan)
+    want = races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, SPAN)
+    torch.cuda.synchronize()
+    assert races.bc_races.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,M", [(1, 4096, 16384), (2, 333, 1000), (1, 100, 10)])
+def test_knn_kernel_at_k10_equals_plain_version(cuda, B, Q, M):
+    # the feature classifier's k (io/feature_extracter.py): split and unsplit
+    q, xyz, _, mask = _problem(14, B, Q, M, False, cuda)
+    got = knn.knn(q, xyz, mask, 10)
+    want = knn.knn_plain(q, xyz, mask, 10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].min()) >= 0 and int(got[0].max()) < M
+    with pytest.raises(ValueError):
+        knn.knn(q, xyz, mask, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("B,Q,M", [(1, 4096, 65536), (4, 1000, 5000)])
+def test_knn_on_a_spatially_sorted_reference(cuda, k, B, Q, M):
+    # a reference stored in spatial order (as the cube map's surround and the
+    # voxel filter's output are), with exact duplicates: the kernel's sampled
+    # bound on each chunk's k-th distance must leave the result unchanged
+    rng = np.random.RandomState(15)
+    xyz = np.round(rng.uniform(-20, 20, (M, 3)), 1).astype(np.float32)
+    xyz = xyz[np.lexsort((xyz[:, 2], xyz[:, 1], xyz[:, 0]))]
+    xyz[M // 2:M // 2 + 40] = xyz[M // 2]
+    q = np.round(rng.uniform(-20, 20, (B, Q, 3)), 1).astype(np.float32)
+    q[0, :5] = xyz[M // 2]
+    q = torch.from_numpy(q).to(cuda)
+    xyz = torch.from_numpy(xyz).to(cuda)
+    mask = torch.from_numpy(rng.rand(M) > 0.05).to(cuda)
+    got = knn.knn(q, xyz, mask, k)
+    want = knn.knn_plain(q, xyz, mask, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -182,3 +182,130 @@ def test_first_k_equals_the_stable_sort_under_ties():
     idx, v = tknn._first_k(d.clone(), K)
     sv, si = torch.sort(d, dim=-1, stable=True)
     assert torch.equal(v, sv[:, :K]) and torch.equal(idx, si[:, :K].to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The split of M across blocks (csrc/split.cuh): the plan and the merge law
+# ---------------------------------------------------------------------------
+
+H100_SMS, KNN_BLOCK_QUERIES = 132, 256     # the card's SMs; 128 threads x 2 queries
+
+
+@pytest.mark.parametrize("B,Q,M,split", [
+    (64, 2048, 5888, False),    # scan-to-map batch, surf
+    (1, 8192, 65536, True),     # mapping sweep, surf
+    (1, 2048, 32768, True),     # mapping sweep, corner
+    (64, 256, 512, True),       # scan-to-map batch, corner: 64 blocks
+    (1, 100, 7, True),          # M smaller than a chunk: one chunk
+    (3, 333, 1000, True),
+    (1, 5, 5, False),
+])
+def test_split_plan_covers_m_in_nonempty_chunks(B, Q, M, split):
+    S, L = tknn._split_plan(B, Q, M, H100_SMS, KNN_BLOCK_QUERIES)
+    chunks = [(z * L, min(M, (z + 1) * L)) for z in range(S)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == M
+    assert all(a < b for a, b in chunks)                        # non-empty
+    assert all(chunks[z][1] == chunks[z + 1][0] for z in range(S - 1))
+    blocks = B * -(-Q // KNN_BLOCK_QUERIES)
+    if blocks >= H100_SMS:
+        assert (S, L) == (1, M)                                 # no scratch, no merge
+    elif split and M > S:
+        # the split grid fills the card as far as the smallest chunk allows
+        assert S > 1 or M <= tknn.races.SPLIT_MIN_CHUNK
+        assert blocks * S >= H100_SMS or L <= 2 * tknn.races.SPLIT_MIN_CHUNK
+    assert S == 1 or split
+
+
+def _merge_first_k(parts, k):
+    """csrc/split.cuh's merge_first_k in Python: per query, the chunks'
+    ascending lists in chunk order, inserted with a strict "<" and moved up
+    past strictly larger entries only, from (+inf, 0..k-1)."""
+    n = parts[0][0].reshape(-1, k).shape[0]
+    out_d = np.full((n, k), np.inf, np.float32)
+    out_i = np.tile(np.arange(k, dtype=np.int32), (n, 1))
+    for t in range(n):
+        bd, bi = list(out_d[t]), list(out_i[t])
+        for pi, pd in parts:
+            for d, j in zip(pd.reshape(n, k)[t], pi.reshape(n, k)[t]):
+                if not d < bd[-1]:
+                    break
+                bd[-1], bi[-1] = d, j
+                for s in range(k - 1, 0, -1):
+                    if bd[s] < bd[s - 1]:
+                        bd[s], bd[s - 1] = bd[s - 1], bd[s]
+                        bi[s], bi[s - 1] = bi[s - 1], bi[s]
+        out_d[t], out_i[t] = bd, bi
+    return out_i, out_d
+
+
+def _chunk_first_k(q, r, m, c0, c1, k):
+    """knn_plain over the chunk [c0, c1), indices offset by c0, padded to k
+    entries with (+inf, slot) as the kernel's list starts."""
+    shared = r.dim() == 2
+    rc = (r[c0:c1] if shared else r[:, c0:c1]).contiguous()
+    mc = (m[c0:c1] if shared else m[:, c0:c1]).contiguous()
+    kk = min(k, c1 - c0)
+    idx, d = tknn.knn_plain(q, rc, mc, kk)
+    pad = k - kk
+    if pad:
+        lead = idx.shape[:-1]
+        idx = torch.cat([idx, torch.arange(kk, k, dtype=torch.int32).expand(*lead, pad)], -1)
+        d = torch.cat([d, torch.full((*lead, pad), np.inf)], -1)
+    return (idx + c0 * (idx < kk if pad else 1)).numpy(), d.numpy()
+
+
+def _random_chunkings(rng, M, n):
+    """n chunkings of [0, M): random cuts (chunks as short as 1) and even splits."""
+    out = []
+    for i in range(n):
+        if i % 2:
+            S = rng.randint(2, min(M, 40))
+            L = -(-M // S)
+            cuts = list(range(L, M, L))
+        else:
+            cuts = sorted(rng.choice(np.arange(1, M), rng.randint(1, min(M - 1, 30)), replace=False))
+        out.append([0, *cuts, M])
+    return out
+
+
+def _tied_problem(seed, B, Q, M, per_problem, k_edge=()):
+    """Integer-grid points (heavy distance ties) with exact duplicates planted
+    on both sides of every position in ``k_edge``."""
+    rng = np.random.RandomState(seed)
+    lead = (B,) if per_problem else ()
+    q = rng.randint(-3, 4, (B, Q, 3)).astype(np.float32)
+    r = rng.randint(-3, 4, lead + (M, 3)).astype(np.float32)
+    for e in k_edge:
+        r[..., e - 2:e + 2, :] = r[..., e - 2:e - 1, :]
+    mask = rng.rand(*(lead + (M,))) > 0.1
+    return rng, torch.from_numpy(q), torch.from_numpy(r), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+@pytest.mark.parametrize("k", [5, 10])
+def test_first_k_is_the_ordered_merge_of_chunks(per_problem, k):
+    # the identity the split k-NN kernel rests on: the first k of the whole
+    # equals the (d, j)-ordered merge of the chunks' first k, under heavy
+    # ties, ties straddling chunk edges and chunks shorter than k
+    M = 97
+    rng, q, r, m = _tied_problem(31 + k, 2, 40, M, per_problem, k_edge=(24, 50, 75))
+    want_i, want_d = (t.numpy().reshape(-1, k) for t in tknn.knn_plain(q, r, m, k))
+    for cuts in _random_chunkings(rng, M, 6) + [[0, 24, 50, 75, M], [0, 3, 6, 9, M]]:
+        parts = [_chunk_first_k(q, r, m, a, b, k) for a, b in zip(cuts[:-1], cuts[1:])]
+        got_i, got_d = _merge_first_k(parts, k)
+        np.testing.assert_array_equal(got_d, want_d)
+        np.testing.assert_array_equal(got_i, want_i)
+
+
+def test_merge_of_a_nan_query_is_inf_and_the_first_slots():
+    # a NaN distance never enters a list (a NaN compare is false): a NaN
+    # query merges to (+inf, 0..k-1), what one scan of the kernel gives
+    _, q, r, m = _tied_problem(4, 1, 6, 60, False)
+    q[0, 2] = float("nan")
+    parts = [_chunk_first_k(q, r, m, a, b, K) for a, b in ((0, 20), (20, 23), (23, 60))]
+    got_i, got_d = _merge_first_k(parts, K)
+    assert np.isinf(got_d[2]).all() and (got_i[2] == np.arange(K)).all()
+    want_i, want_d = (t.numpy().reshape(-1, K) for t in tknn.knn_plain(q, r, m, K))
+    finite = np.arange(6) != 2
+    np.testing.assert_array_equal(got_i[finite], want_i[finite])
+    np.testing.assert_array_equal(got_d[finite], want_d[finite])

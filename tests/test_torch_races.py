@@ -178,3 +178,84 @@ def test_wrappers_reject_bad_inputs():
     ia, _ = races.nn1(tq, tx, tm)
     with pytest.raises(ValueError):
         races.nn1_masked(tq, _t(ring)[ia.long()], ia, tx, _t(ring), tm, "near")
+
+
+# ---------------------------------------------------------------------------
+# The split of M across blocks (csrc/split.cuh): the plan and the merge law
+# ---------------------------------------------------------------------------
+
+H100_SMS, BC_BLOCK_QUERIES = 132, 128      # the card's SMs; 128 threads, 1 query each
+
+
+@pytest.mark.parametrize("B,Q,M,S_min", [
+    (512, 768, 3840, 1),     # odometry batch: already 3072 blocks, no split
+    (8, 768, 3840, 1),       # 48 blocks: split
+    (1, 1024, 8192, 66),     # single-stream surf: 8 query blocks
+    (1, 256, 2048, 32),      # single-stream corner shapes: 2 query blocks
+])
+def test_split_plan_at_the_race_shapes(B, Q, M, S_min):
+    S, L = races._split_plan(B, Q, M, H100_SMS, BC_BLOCK_QUERIES)
+    races._check_plan(S, L, M)
+    blocks = B * -(-Q // BC_BLOCK_QUERIES)
+    assert S >= S_min
+    if blocks >= H100_SMS:
+        assert (S, L) == (1, M)
+    else:
+        # every SM gets a block, or each chunk is already the smallest one
+        assert blocks * S >= H100_SMS or L < 2 * races.SPLIT_MIN_CHUNK
+        assert L >= races.SPLIT_MIN_CHUNK or S == 1
+
+
+@pytest.mark.parametrize("S,L,M", [(0, 10, 5), (2, 10, 10), (3, 4, 13), (1, 9, 10)])
+def test_check_plan_rejects_plans_that_miss_m(S, L, M):
+    # an empty last chunk, a gap at the end, or S < 1
+    with pytest.raises(ValueError):
+        races._check_plan(S, L, M)
+
+
+def _merge_min(parts):
+    """csrc/split.cuh's merge_min in Python: the chunks' (min, argmin) pairs
+    in chunk order, strict "<", from (+inf, 0)."""
+    best = np.full(parts[0][1].shape, np.inf, np.float32)
+    bidx = np.zeros(parts[0][0].shape, np.int32)
+    for i, d in parts:
+        take = d < best
+        best[take], bidx[take] = d[take], i[take]
+    return bidx, best
+
+
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+def test_bc_races_are_the_ordered_merge_of_chunks(per_problem):
+    # races B and C over the whole equal the chunk-order merge of the races
+    # over each chunk (indices offset, ia taken relative to the chunk), under
+    # heavy ties, duplicates straddling chunk edges and chunks of one point
+    B_, Q_, M_ = 2, 60, 90
+    rng = np.random.RandomState(21)
+    lead = (B_,) if per_problem else ()
+    q = rng.randint(-3, 4, (B_, Q_, 3)).astype(np.float32)
+    xyz = rng.randint(-3, 4, lead + (M_, 3)).astype(np.float32)
+    for e in (30, 61):
+        xyz[..., e - 2:e + 2, :] = xyz[..., e - 2:e - 1, :]
+    ring = rng.randint(0, 4, lead + (M_,)).astype(np.int32)
+    mask = rng.rand(*(lead + (M_,))) > 0.1
+    tq, tx, tr, tm = _t(q), _t(xyz), _t(ring), _t(mask)
+    ia, _ = races.nn1_plain(tq, tx, tm)
+    ring_a = tr[ia.long()] if not per_problem else torch.gather(tr, 1, ia.long())
+    ring_a[:, ::7] = torch.from_numpy(rng.randint(0, 4, ring_a[:, ::7].shape).astype(np.int32))
+    want = [t.numpy() for t in races.bc_races_plain(tq, ring_a, ia, tx, tr, tm, SPAN)]
+    cut_sets = [[0, 30, 61, M_], [0, 1, 2, 29, 30, 31, M_], [0, 45, M_]]
+    cut_sets += [[0, *sorted(rng.choice(np.arange(1, M_), 12, replace=False)), M_]
+                 for _ in range(3)]
+    for cuts in cut_sets:
+        parts_b, parts_c = [], []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            sl = (lambda t: t[a:b]) if not per_problem else (lambda t: t[:, a:b])
+            ib, db, ic, dc = races.bc_races_plain(
+                tq, ring_a, ia - a, sl(tx).contiguous(), sl(tr).contiguous(),
+                sl(tm).contiguous(), SPAN)
+            parts_b.append(((ib + a).numpy(), db.numpy()))
+            parts_c.append(((ic + a).numpy(), dc.numpy()))
+        for got, w_i, w_d in ((_merge_min(parts_b), want[0], want[1]),
+                              (_merge_min(parts_c), want[2], want[3])):
+            np.testing.assert_array_equal(got[1], w_d)
+            np.testing.assert_array_equal(got[0], w_i)
