@@ -34,7 +34,7 @@ Phases, each announced on its own line as it starts:
    path's shapes: indices equal for every query inside the 25 m^2 gate (a
    true tie, distances within 1e-5 relative, is counted and must stay under
    0.1% of queries), distances within 1e-4 relative; kernel, plain and
-   library times;
+   library times (nn1 at both its shapes, surf and corner);
 4. the odometry path once with every launch counter at 0, then: all lanes
    finite, four lanes equal to a CPU run of the same solve (plain versions)
    within 2e-3, every race kernel launched; then the steady-state solves/s;
@@ -58,12 +58,14 @@ Phases, each announced on its own line as it starts:
    kernels (nn1 -> bc_races / nn1_masked "adj") on every query whose race-A
    winner is valid; the split kernels against their plain versions, bit for
    bit on every query, at the B = 1 shapes; kernel, plain and library times
-   beside the bound, for the fused kernel and for bc_races at the B = 1 surf
-   shape (1 x 1024 vs 8192), where it splits M across blocks;
+   beside the bound, for the fused kernel and, where they split M across
+   blocks, for the split kernels at the B = 1 shapes: bc_races and nn1 at
+   1 x 1024 vs 8192, nn1 and nn1_masked "adj" at 1 x 256 vs 2048;
 9. the single-stream drive on the split route (the default), with
    ``COOPER_PALLAS_FUSED=1``, and on the split route again, every launch
    counter at 0 before each: per odometry sweep 10 + 5 + 5 split race
-   launches and no fused one, or 10 fused and no split one; 22 k-NN
+   launches and no fused one, or 10 fused and no split one, and of the
+   split ones the merges that ``_split_plan`` implies at B = 1; 22 k-NN
    launches per mapping sweep; poses bit-identical on both routes and on
    the repeat; the final position within 0.3 m of the simulator's
    (tests/test_pipeline.py::TestFusedSteps' bound); a non-empty map; ms per
@@ -81,11 +83,12 @@ Phases, each announced on its own line as it starts:
 12. the card against the CPU at the reduced configuration of
    tests/test_pipeline.py::TestFusedSteps (16 x 512 sweeps, a 7 x 3 x 7
    map, 6 sweeps): every pose within 2e-3;
-13. a ``kernels`` JSON line (the knn and bc_races rows carry their times at
-   the single-stream shapes of phases 8 and 10 under ``single_stream``,
-   with the split route's launches in the phase 9 drive; beside
-   ``launches``, their ``merges`` count the calls that split M and so also
-   launched the merge kernel), then the result line.
+13. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+   carry their times at the single-stream shapes of phases 8 and 10 under
+   ``single_stream``, with the split route's launches in the phase 9 drive;
+   beside ``launches``, their ``merges`` count the calls that split M and
+   so also launched the merge kernel; nn1's corner shape of phase 3 is under
+   ``more_shapes``), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -161,8 +164,8 @@ def read_launches():
 
 
 def read_merges():
-    """Calls of the split searches (knn, bc_races) that split M across
-    blocks and so also launched their merge kernel."""
+    """Calls of the split searches (nn1, nn1_masked, bc_races, knn) that
+    split M across blocks and so also launched their merge kernel."""
     return {k.__name__: k.merges for k in kernels() if hasattr(k, "merges")}
 
 
@@ -311,6 +314,7 @@ def kernel_phase(sharp, flat, ref_c, ref_s, x0):
                              races.nn1(qs, ref_sb.xyz, ref_sb.mask),
                              races.nn1_plain(qs, ref_sb.xyz, ref_sb.mask)))
     rows["nn1"] = dict(err=max(errs), q=qs, ref=ref_s)
+    rows["nn1 corner"] = dict(err=max(errs), q=qc, ref=ref_c)
 
     # ring race, "adj" (corner race B, on the main path) and "same"
     ra, ia = race_a_ring(qc, ref_c)
@@ -333,9 +337,10 @@ def kernel_phase(sharp, flat, ref_c, ref_s, x0):
             rows["bc_races"] = dict(q=qs, ref=ref_s, ra=ra_s, ia=ia_s)
     rows["bc_races"]["err"] = max(errs)
 
-    # times at the main path's dominant shape of each kernel
+    # times at the main path's shapes of each kernel (nn1: surf, then corner)
     log(f"    times ({RACE_TIMES})")
-    return {name: race_times(name, r["q"], r["ref"], r["err"], r.get("ra"), r.get("ia"), span)
+    return {name: race_times(name.split()[0], r["q"], r["ref"], r["err"], r.get("ra"),
+                             r.get("ia"), span)
             for name, r in rows.items()}
 
 
@@ -717,6 +722,7 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         ("ragged Q=333 M=1000", rand(3, 333, 3), None, True),
     ]
     err = 0.0
+    single = {}
     for label, q, ref, with_same in cases:
         xyz, ring, mask = ragged_ref if ref is None else (ref.xyz, ref.ring, ref.mask)
         shared = xyz.dim() == 2
@@ -732,14 +738,14 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         compare_exact(f"{label} vs the split kernels where A is valid", got, split, a_valid)
         if label.startswith("single-stream"):
             # the split route's launches at B = 1, every query
-            compare_exact(f"{label} nn1 vs nn1_plain", (ia, da), races.nn1_plain(q, xyz, mask))
+            a_err = compare_exact(f"{label} nn1 vs nn1_plain", (ia, da),
+                                  races.nn1_plain(q, xyz, mask))
             plain = (races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, span) if with_same
                      else races.nn1_masked_plain(q, ring_a, ia, xyz, ring, mask, "adj", span))
             d_err = compare_exact(
                 f"{label} {'bc_races' if with_same else 'nn1_masked adj'} vs plain",
                 split[2:], plain)
-            if with_same:
-                bc_single = (q, ref, d_err, ring_a, ia)
+            single[label] = (q, ref, a_err, d_err, ring_a, ia)
 
     log("    times (CUDA events; plain = fused_races_plain on the card; library = "
         "torch.cdist chain: min, ring gather, masked mins)")
@@ -780,8 +786,14 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         log(f"    fused_races {label} [{row['shape']}, {pairs:.3g} pairs, blocks "
             f"{-(-Q // 128) * B}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
             f"{library_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    log(f"    bc_races at the single-stream surf shape, split across blocks ({RACE_TIMES})")
-    out["bc_races single-stream"] = race_times("bc_races", *bc_single, span)
+    log(f"    the split kernels at the single-stream shapes, M split across blocks "
+        f"({RACE_TIMES})")
+    q, ref, a_err, d_err, ring_a, ia = single["single-stream surf"]
+    out["bc_races single-stream"] = race_times("bc_races", q, ref, d_err, ring_a, ia, span)
+    out["nn1 single-stream surf"] = race_times("nn1", q, ref, a_err)
+    q, ref, a_err, d_err, ring_a, ia = single["single-stream corner"]
+    out["nn1 single-stream corner"] = race_times("nn1", q, ref, a_err)
+    out["nn1_masked single-stream"] = race_times("nn1_masked", q, ref, d_err, ring_a, ia, span)
     return out
 
 
@@ -823,6 +835,7 @@ def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     race = ({"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 10} if fused_route
             else {"nn1": 10, "nn1_masked": 5, "bc_races": 5, "fused_races": 0})
+    race_merges = split_race_merges(cfg, race["bc_races"], device) if on_card else {}
     reset_launches()
     total = dict.fromkeys(read_launches(), 0)
     stride = max(cfg.mapping_stride, 1)
@@ -830,7 +843,7 @@ def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
     poses, oks, ms = [], [], {"odometry": [], "mapping": []}
     try:
         for i, sw in enumerate(sweeps):
-            before = read_launches()
+            before, before_m = read_launches(), read_merges()
             sync()
             t0 = time.perf_counter()
             if i == 0:
@@ -856,9 +869,31 @@ def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
             want = dict(race, knn=2 * (cfg.scan_match.max_iterations + 1) if kind == "mapping" else 0)
             if check_launches and got != want:
                 fail(f"{label}: sweep {i} ({kind}) launched {got}, expected {want}")
+            after_m = read_merges()
+            got_m = {k: after_m[k] - before_m[k] for k in race_merges}
+            if check_launches and got_m != race_merges:
+                fail(f"{label}: sweep {i} ({kind}) merged {got_m}, expected {race_merges}")
     finally:
         os.environ["COOPER_PALLAS_FUSED"] = "0"
     return st, np.stack(poses), oks, ms, dict(total, merges=read_merges())
+
+
+def split_race_merges(cfg, refreshes, device):
+    """Merge launches per sweep of the split route's races at B = 1, as
+    ``_split_plan`` implies them for the sweep's shapes (queries: sharp /
+    flat capacity; reference: less_sharp / less_flat) over ``refreshes``
+    correspondence refreshes: a call merges where its plan splits M."""
+    from cooper_mapper_torch.build import library
+    from cooper_mapper_torch.ops import races
+
+    lib, reg = library(), cfg.registration
+    n_sm = races.sm_count(device)
+    split = lambda Q, M, bq: int(races._split_plan(1, Q, M, n_sm, bq)[0] > 1)
+    corner, surf = (reg.max_sharp, reg.max_less_sharp), (reg.max_flat, reg.max_less_flat)
+    nn1_bq = lib.cooper_nn1_block_queries()   # nn1 and nn1_masked
+    return {"nn1": refreshes * (split(*corner, nn1_bq) + split(*surf, nn1_bq)),
+            "nn1_masked": refreshes * split(*corner, nn1_bq),
+            "bc_races": refreshes * split(*surf, lib.cooper_bc_races_block_queries())}
 
 
 def map_bytes(m):
@@ -1112,8 +1147,13 @@ def main():
     ss_stats = {r: dict(stat=v["stat"]) for r, v in runs.items()}
     kern["fused_races"] = fused_rows["single-stream surf"]
     # the B = 1 shapes of the split route, where the kernels split M
-    single_stream = {"bc_races": [fused_rows["bc_races single-stream"]],
+    single_stream = {"nn1": [fused_rows["nn1 single-stream surf"],
+                             fused_rows["nn1 single-stream corner"]],
+                     "nn1_masked": [fused_rows["nn1_masked single-stream"]],
+                     "bc_races": [fused_rows["bc_races single-stream"]],
                      "knn": list(mapping_knn_phase(ss_cfg, sweeps, device).values())}
+    # the main path's other shapes of a kernel (nn1: the corner search)
+    more_shapes = {"nn1": [kern.pop("nn1 corner")]}
     loc_steady, loc_seed = localization_phase(runs["split"]["state"].map, frame, ss_cfg, device)
     del runs
     reduced_dx = reduced_card_vs_cpu_phase(device)
@@ -1131,6 +1171,8 @@ def main():
         "replaces": sources[k][0], "launches": launches[k], **fields(v),
     } for k, v in kern.items()]
     for row in rows:
+        if row["name"] in more_shapes:
+            row["more_shapes"] = [fields(v) for v in more_shapes[row["name"]]]
         if row["name"] in merges:
             # of the launches, the calls that split M and launched the merge kernel too
             row["merges"] = merges[row["name"]]

@@ -103,8 +103,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cooper_nn1.argtypes = [P, P, P, P, P, I, I, I, I, P]
-        lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
+        lib.cooper_nn1.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.cooper_nn1_block_queries.argtypes = []
+        lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I,
+                                          P]
         lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,
                                         P]
         lib.cooper_bc_races_block_queries.argtypes = []
@@ -112,8 +114,8 @@ def library() -> ctypes.CDLL:
         lib.cooper_knn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.cooper_knn_block_queries.argtypes = [I]
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
-                   lib.cooper_fused_races, lib.cooper_knn, lib.cooper_bc_races_block_queries,
-                   lib.cooper_knn_block_queries):
+                   lib.cooper_fused_races, lib.cooper_knn, lib.cooper_nn1_block_queries,
+                   lib.cooper_bc_races_block_queries, lib.cooper_knn_block_queries):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

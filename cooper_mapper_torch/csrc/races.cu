@@ -14,65 +14,85 @@
 // j = 0..M-1 of that problem's reference (batch stride 0 = one reference
 // shared by all problems):
 //   d(q, j) = (|q|^2 - 2 (q . r_j)) + |r_j|^2
-// where the wrapper has already set |r_j|^2 = BIG (1e12) for an invalid point
-// and its ring to 1e9.  A ring race replaces d by BIG where the candidate
-// fails the ring test.  The output is (min_j d, first j attaining it): the
-// scan runs in index order with a strict "<", so ties go to the smaller
-// index, exactly like torch.argmin and the TPU kernels.
+// with |r_j|^2 = BIG (1e12) for an invalid point and its ring 1e9.  A ring
+// race replaces d by BIG where the candidate fails the ring test.  The output
+// is (min_j d, first j attaining it), as a scan in index order with a strict
+// "<" gives it: ties go to the smaller index, exactly like torch.argmin and
+// the TPU kernels.  nn1_kernel and masked_kernel form |r|^2, BIG, the f32
+// ring and ring_a's f32 themselves from the caller's mask (bool) and rings
+// (int32); bc_races_kernel and fused_races_kernel take them from the wrapper.
 //
 // Rounding.  Every multiply and add is spelled with __fmul_rn / __fadd_rn /
 // __fsub_rn, which nvcc never contracts into an FMA.  The order is the plain
 // PyTorch version's (cooper_mapper_torch/ops/races.py):
-//   qn    = (qx*qx + qy*qy) + qz*qz
+//   qn    = (qx*qx + qy*qy) + qz*qz      (|r|^2 the same way)
 //   cross = (qx*rx + qy*ry) + qz*rz
 //   d     = (qn - 2*cross) + rn
-// so kernel and plain version produce bit-identical distances.
+// and an int32 ring becomes f32 by round-to-nearest (__int2float_rn), as
+// torch's .to(float32) does, so kernel and plain version produce
+// bit-identical distances.
 //
-// What bounds it on this card.  Per (query, reference) pair a race does ~8
-// FP32 operations for the distance and 1-6 more for the ring test and the
+// What bounds it on this card.  Per (query, reference) pair a race does 8
+// FP32 operations for the distance and 1-4 more for the ring test and the
 // running minimum, and reads nothing from device memory: the reference tile
 // sits in shared memory and every thread of a block reads the same element
 // (a broadcast).  The inputs are a few MB per call, so the kernels are bound
 // by FP32 issue rate, not by bandwidth.
 //
-// What the design does about it.  nn1, masked and fused kernels: one thread
-// per query keeps its running (min, argmin) in registers; blockIdx.y is the
-// problem.  A block stages TILE_M reference points as float4 (x, y, z, |r|^2)
-// plus a float ring in shared memory, so the inner loop is one 16-byte shared
-// broadcast and the arithmetic, nothing else.  The ragged last tile is
-// bounded by M itself; no padding of the reference is needed.
+// What the designs do about it.  All four kernels keep their queries' running
+// minima in registers; blockIdx.y is the problem.  A block stages TILE_M
+// reference points as float4 (x, y, z, |r|^2) plus a float ring in shared
+// memory, so the inner loop is one 16-byte shared broadcast and the
+// arithmetic, nothing else.  The ragged last tile is bounded by M itself; no
+// padding of the reference is needed.
 //
+// nn1_kernel and masked_kernel (times: time_search_kernels.py, PERF.md):
+// * group minima, no index per pair.  Each query keeps only the minimum of
+//   the current group of RACE_GROUP points, one fminf per pair, and once per
+//   group records the group where its minimum is strictly below the running
+//   one.  At the end the recorded group is scanned again for the first point
+//   whose recomputed value equals the minimum (race_group, race_block).  So
+//   race A issues the 9 operations per pair the function needs: 8 for d and
+//   one fminf;
+// * the settled rule (ring races): once every running minimum of a warp is
+//   <= BIG, a candidate that fails its ring test cannot win, and
+//   "ring test passes, then fminf" replaces forming the masked value;
+// * full groups run loops with compile-time trip counts, unrolled, and the
+//   ragged end its own loop;
+// * queries per thread: 2 where a block scans the whole of M (each shared
+//   broadcast of a point feeds two distance evaluations), 1 where M is split
+//   (twice the query blocks, so half the chunks and a shorter merge for the
+//   same grid); 4 was slower at every shape (PERF.md);
+// * the wrapper's input prep is in the kernel (raw_point, raw_ring): the
+//   wrapper launches this kernel and, where M is split, merge_min, nothing
+//   else.
 // bc_races_kernel computes d once per pair and feeds both masked reductions,
-// the TPU kernel's saving, and is built for this card (times:
-// time_search_kernels.py, PERF.md):
-// * the settled rule: a candidate that fails its ring test counts as BIG and
-//   can win only while the race's minimum is above BIG, i.e. at the first
-//   points of a scan.  Once every minimum of a warp is <= BIG (a vote every
-//   BC_STEP points), "ring test passes and d < minimum" gives the same bits
-//   without forming the masked value: two selects per pair go.
-//   "same" and "adj" share one rd = |ring - ring_a|;
+// the TPU kernel's saving:
+// * the settled rule, by a vote every BC_STEP points; "same" and "adj" share
+//   one rd = |ring - ring_a|;
 // * full tiles run loops with compile-time trip counts, unrolled, and the
 //   ragged end its own loop;
 // * one query per thread.  Each shared broadcast of a point could feed
 //   several queries, but 2 and 4 per thread were slower at the odometry
 //   batch shape (PERF.md): the race is bound by its compares and selects,
-//   not by the shared loads, and fewer threads hide less latency;
-// * M split across blocks where the grid would not fill the card (B = 1 in
-//   the single-stream sweep: 1024 queries are 8 blocks for 132 SMs).  The
-//   grid is (query blocks, B, S); block z scans one chunk of M and writes its
-//   (min, argmin) pairs to scratch, and merge_min (split.cuh) joins them in
-//   chunk order.  The wrapper picks S from B, Q, M and the card's SM count
-//   (ops/races._split_plan); S = 1 writes the output directly, no merge.
-//   Why the merge gives the same bits as one scan: split.cuh.
+//   not by the shared loads, and fewer threads hide less latency.
+// nn1_kernel, masked_kernel and bc_races_kernel split M across blocks where
+// the grid would not fill the card (B = 1 in the single-stream sweep: 1024
+// queries are 4-8 blocks for 132 SMs).  The grid is (query blocks, B, S);
+// block z scans one chunk of M and writes its (min, argmin) pairs to scratch,
+// and merge_min (split.cuh) joins them in chunk order.  The wrapper picks S
+// from B, Q, M and the card's SM count (ops/races._split_plan); S = 1 writes
+// the output directly, no merge.  Why the merge gives the same bits as one
+// scan: split.cuh.
 
 // fused_races_kernel.  The TPU kernel holds the whole [tile_q, M] distance
 // tile in VMEM, takes A's argmin, extracts A's ring with a masked min (Mosaic
 // has no per-lane gather) and runs B and C on the same tile.  Here a thread
 // cannot hold its row of M distances, and B and C need A's ring before they
 // can mask, so the kernel makes two passes over the shared-memory tiles in
-// one launch: pass 1 is nn1_kernel's race A; the thread then reads ring[ia]
-// itself (one load from device memory); pass 2 is bc_races_kernel's loop
-// (WITH_SAME, surf) or masked_kernel<0>'s (corner).  The distance is
+// one launch: pass 1 is race A, a strict-"<" scan of its own; the thread
+// then reads ring[ia] itself (one load from device memory); pass 2 is a
+// scan of races B (WITH_SAME, surf) and C by the masked value.  The distance is
 // computed twice per pair, so the kernel issues ~21-23 FP32 operations per
 // pair against the 13-15 the function needs (the bound in chip_smoke.py):
 // operations bound it, as for the split races.  What it saves is one launch
@@ -86,6 +106,12 @@ namespace {
 constexpr int THREADS = SEARCH_THREADS;   // threads per block
 constexpr int TILE_M = 512;    // reference points staged per shared-memory tile
 constexpr float BIG = 1.0e12f;
+constexpr float RING_INVALID = 1.0e9f;
+constexpr int RACE_GROUP = 32;   // points per group of nn1_kernel / masked_kernel
+// Queries per thread of nn1_kernel / masked_kernel: where a block scans the
+// whole of M (S = 1, a grid that fills the card) and where M is split.
+constexpr int WHOLE_QPT = 2;
+constexpr int SPLIT_QPT = 1;
 
 struct RefTile {
   float4 p[TILE_M];    // x, y, z, |r|^2 (BIG where invalid)
@@ -105,77 +131,211 @@ __device__ __forceinline__ void load_tile(RefTile& t, const float* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-nn1_kernel(const float* __restrict__ q, const float* __restrict__ r,
-           const float* __restrict__ rn, float* __restrict__ out_d,
-           int* __restrict__ out_i, int Q, int M, long long r_bstride) {
-  __shared__ RefTile tile;
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = qi < Q;
-  const long long qo = (long long)b * Q + (live ? qi : 0);
-  const float qx = q[3 * qo], qy = q[3 * qo + 1], qz = q[3 * qo + 2];
-  const float qn = sq_norm(qx, qy, qz);
-  r += b * r_bstride * 3;
-  rn += b * r_bstride;
+// ---------------------------------------------------------------------------
+// nn1_kernel and masked_kernel: race A and one ring race, by group minima
+// ---------------------------------------------------------------------------
 
-  float best = INFINITY;
-  int bidx = 0;
-  for (int base = 0; base < M; base += TILE_M) {
-    const int n = min(TILE_M, M - base);
-    __syncthreads();
-    load_tile<false>(tile, r, rn, nullptr, base, n);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float d = sq_dist(qx, qy, qz, qn, tile.p[k]);
-      if (d < best) { best = d; bidx = base + k; }
-    }
-  }
-  if (live) { out_d[qo] = best; out_i[qo] = bidx; }
+// Reference point j as the plain version forms it from the caller's tensors:
+// (x, y, z, |r|^2) with |r|^2 = (x*x + y*y) + z*z, or BIG where the point is
+// invalid; its ring as f32 (the rounding of torch's .to(float32)), or
+// RING_INVALID.  The wrappers of nn1 and nn1_masked pass r_mask and r_ring
+// as they are: these kernels form what the wrapper used to.
+__device__ __forceinline__ float4 raw_point(const float* __restrict__ r,
+                                            const bool* __restrict__ mask, int j) {
+  const float x = r[3 * j], y = r[3 * j + 1], z = r[3 * j + 2];
+  return make_float4(x, y, z, mask[j] ? sq_norm(x, y, z) : BIG);
 }
 
-// MODE 0 = "adj": 0 < |ring - ra| <= span;  MODE 1 = "same": ring == ra, j != ia.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-masked_kernel(const float* __restrict__ q, const float* __restrict__ ra,
-              const int* __restrict__ ia, const float* __restrict__ r,
-              const float* __restrict__ rn, const float* __restrict__ ring,
-              float* __restrict__ out_d, int* __restrict__ out_i, int Q, int M,
-              long long r_bstride, float span) {
-  __shared__ RefTile tile;
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = qi < Q;
-  const long long qo = (long long)b * Q + (live ? qi : 0);
-  const float qx = q[3 * qo], qy = q[3 * qo + 1], qz = q[3 * qo + 2];
-  const float qn = sq_norm(qx, qy, qz);
-  const float ring_a = ra[qo];
-  const int idx_a = ia[qo];
-  r += b * r_bstride * 3;
-  rn += b * r_bstride;
-  ring += b * r_bstride;
+__device__ __forceinline__ float raw_ring(const int* __restrict__ ring,
+                                          const bool* __restrict__ mask, int j) {
+  return mask[j] ? __int2float_rn(ring[j]) : RING_INVALID;
+}
 
-  float best = INFINITY;
-  int bidx = 0;
-  for (int base = 0; base < M; base += TILE_M) {
-    const int n = min(TILE_M, M - base);
-    __syncthreads();
-    load_tile<true>(tile, r, rn, ring, base, n);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      float d = sq_dist(qx, qy, qz, qn, tile.p[k]);
-      bool ok;
-      if (MODE == 0) {
-        const float rd = fabsf(__fsub_rn(tile.ring[k], ring_a));
-        ok = rd > 0.0f && rd <= span;
+enum RaceKind { RACE_A, RACE_ADJ, RACE_SAME };
+
+// One query of nn1_kernel / masked_kernel: its running minimum and the first
+// index of the group of points that holds it (-1: none yet).
+struct RaceQuery {
+  float qx, qy, qz, qn, ring_a;
+  int idx_a;
+  float best;
+  int group;
+};
+
+template <RaceKind K>
+__device__ __forceinline__ bool ring_ok(const RaceQuery& w, float rg, int j, float span) {
+  if (K == RACE_ADJ) {
+    const float rd = fabsf(__fsub_rn(rg, w.ring_a));
+    return rd > 0.0f && rd <= span;
+  }
+  return rg == w.ring_a && j != w.idx_a;   // RACE_SAME
+}
+
+// The race's value of candidate j: d, or BIG where a ring race's test fails.
+template <RaceKind K>
+__device__ __forceinline__ float race_value(const RaceQuery& w, float4 p, float rg, int j,
+                                            float span) {
+  const float d = sq_dist(w.qx, w.qy, w.qz, w.qn, p);
+  if (K == RACE_A) return d;
+  return ring_ok<K>(w, rg, j, span) ? d : BIG;
+}
+
+// The tile's points [s, s + n) (index base + k): each query's minimum over
+// them by fminf, one per pair, no index kept; the group is recorded where
+// that minimum is strictly below the running one.  fminf skips a NaN as the
+// strict "<" of a scan does, and "<" between groups keeps the earlier group
+// on a tie, so the recorded group holds the scan's (min, first argmin).
+// SETTLED (ring races): every running minimum of the warp is already <= BIG,
+// so a candidate that fails its ring test (value BIG) cannot win, and the
+// rule "ring test passes, then fminf" gives the same minimum without forming
+// the masked value.
+template <RaceKind K, int QPT, int N, bool SETTLED>
+__device__ __forceinline__ void race_group(const RefTile& t, int s, int n, int base, float span,
+                                           RaceQuery (&w)[QPT]) {
+  float m[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) m[u] = INFINITY;
+  // N > 0: n == N, unrolled
+#pragma unroll
+  for (int k = s; k < s + (N > 0 ? N : n); ++k) {
+    const float4 p = t.p[k];
+    const float rg = K == RACE_A ? 0.0f : t.ring[k];
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      if (K == RACE_A || !SETTLED) {
+        m[u] = fminf(m[u], race_value<K>(w[u], p, rg, base + k, span));
       } else {
-        ok = tile.ring[k] == ring_a && base + k != idx_a;
+        const float d = sq_dist(w[u].qx, w[u].qy, w[u].qz, w[u].qn, p);
+        if (ring_ok<K>(w[u], rg, base + k, span)) m[u] = fminf(m[u], d);
       }
-      d = ok ? d : BIG;
-      if (d < best) { best = d; bidx = base + k; }
     }
   }
-  if (live) { out_d[qo] = best; out_i[qo] = bidx; }
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    if (m[u] < w[u].best) { w[u].best = m[u]; w[u].group = base + s; }
+  }
+}
+
+template <RaceKind K, int QPT, int N>
+__device__ __forceinline__ void race_step(const RefTile& t, int s, int n, int base, float span,
+                                          RaceQuery (&w)[QPT]) {
+  bool settled = K != RACE_A;
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) settled = settled && w[u].best <= BIG;
+  if (K != RACE_A && __all_sync(0xffffffffu, settled)) {
+    race_group<K, QPT, N, true>(t, s, n, base, span, w);
+  } else {
+    race_group<K, QPT, N, false>(t, s, n, base, span, w);
+  }
+}
+
+// Block (x, b, z): THREADS * QPT queries of problem b against the chunk z of
+// M; writes (min, first argmin) to dst_d / dst_i[z * chunk_stride + query].
+template <RaceKind K, int QPT>
+__device__ __forceinline__ void race_block(RefTile& tile, const float* __restrict__ q,
+                                           const int* __restrict__ ra,
+                                           const int* __restrict__ ia,
+                                           const float* __restrict__ r,
+                                           const bool* __restrict__ mask,
+                                           const int* __restrict__ ring,
+                                           float* __restrict__ dst_d, int* __restrict__ dst_i,
+                                           int Q, int M, long long r_bstride, float span, int L,
+                                           long long chunk_stride) {
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * (THREADS * QPT) + threadIdx.x;
+  RaceQuery w[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int qi = q0 + u * THREADS;
+    const long long qo = (long long)b * Q + (qi < Q ? qi : 0);
+    w[u].qx = q[3 * qo]; w[u].qy = q[3 * qo + 1]; w[u].qz = q[3 * qo + 2];
+    w[u].qn = sq_norm(w[u].qx, w[u].qy, w[u].qz);
+    w[u].ring_a = K == RACE_A ? 0.0f : __int2float_rn(ra[qo]);
+    w[u].idx_a = K == RACE_SAME ? ia[qo] : 0;
+    w[u].best = INFINITY;
+    w[u].group = -1;
+  }
+  r += b * r_bstride * 3;
+  mask += b * r_bstride;
+  if (K != RACE_A) ring += b * r_bstride;
+
+  int c0, c1;
+  chunk_of_block(M, L, c0, c1);
+  int last = c0;   // base of the last tile staged
+  for (int base = c0; base < c1; base += TILE_M) {
+    const int n = min(TILE_M, c1 - base);
+    last = base;
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += THREADS) {
+      tile.p[k] = raw_point(r, mask, base + k);
+      if (K != RACE_A) tile.ring[k] = raw_ring(ring, mask, base + k);
+    }
+    __syncthreads();
+    if (n == TILE_M) {
+#pragma unroll 1
+      for (int s = 0; s < TILE_M; s += RACE_GROUP) {
+        race_step<K, QPT, RACE_GROUP>(tile, s, RACE_GROUP, base, span, w);
+      }
+    } else {
+      int s = 0;
+      for (; s + RACE_GROUP <= n; s += RACE_GROUP) {
+        race_step<K, QPT, RACE_GROUP>(tile, s, RACE_GROUP, base, span, w);
+      }
+      if (s < n) race_step<K, QPT, 0>(tile, s, n - s, base, span, w);
+    }
+  }
+
+  // Each query's argmin: the first point of its recorded group whose value,
+  // recomputed by the same operations, equals the minimum.  The chunk's last
+  // tile is still in shared memory; an earlier group is read again from the
+  // caller's tensors.  No group: (+inf, 0), as a scan from (+inf, 0) leaves it.
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int qi = q0 + u * THREADS;
+    const int g = w[u].group;
+    const int e = g < 0 ? g : min(g + RACE_GROUP, c1);   // no group: no step
+    float bd = INFINITY;
+    int bi = 0;
+    // backwards, so that the first match is the one kept; no early exit
+    for (int j = e - 1; j >= g; --j) {
+      const bool staged = j >= last;
+      const float4 p = staged ? tile.p[j - last] : raw_point(r, mask, j);
+      const float rg = K == RACE_A ? 0.0f
+                                   : (staged ? tile.ring[j - last] : raw_ring(ring, mask, j));
+      const float v = race_value<K>(w[u], p, rg, j, span);
+      if (v == w[u].best) { bd = v; bi = j; }
+    }
+    if (qi < Q) {
+      const long long o = blockIdx.z * chunk_stride + (long long)b * Q + qi;
+      dst_d[o] = bd;
+      dst_i[o] = bi;
+    }
+  }
+}
+
+// Race A.
+template <int QPT>
+__global__ void __launch_bounds__(THREADS)
+nn1_kernel(const float* __restrict__ q, const float* __restrict__ r,
+           const bool* __restrict__ mask, float* __restrict__ dst_d, int* __restrict__ dst_i,
+           int Q, int M, long long r_bstride, int L, long long chunk_stride) {
+  __shared__ RefTile tile;
+  race_block<RACE_A, QPT>(tile, q, nullptr, nullptr, r, mask, nullptr, dst_d, dst_i, Q, M,
+                          r_bstride, 0.0f, L, chunk_stride);
+}
+
+// One ring race: K = RACE_ADJ, 0 < |ring - ring_a| <= span; RACE_SAME,
+// ring == ring_a and j != ia.
+template <RaceKind K, int QPT>
+__global__ void __launch_bounds__(THREADS)
+masked_kernel(const float* __restrict__ q, const int* __restrict__ ra,
+              const int* __restrict__ ia, const float* __restrict__ r,
+              const bool* __restrict__ mask, const int* __restrict__ ring,
+              float* __restrict__ dst_d, int* __restrict__ dst_i, int Q, int M,
+              long long r_bstride, float span, int L, long long chunk_stride) {
+  __shared__ RefTile tile;
+  race_block<K, QPT>(tile, q, ra, ia, r, mask, ring, dst_d, dst_i, Q, M, r_bstride, span, L,
+                     chunk_stride);
 }
 
 constexpr int BC_STEP = 64;   // points per step of the settled check
@@ -345,6 +505,40 @@ fused_races_kernel(const float* __restrict__ q, const float* __restrict__ r,
 
 dim3 grid_for(int B, int Q) { return dim3((Q + THREADS - 1) / THREADS, B); }
 
+// nn1_kernel / masked_kernel at QPT queries per thread over S chunks of M.
+template <int QPT>
+dim3 race_grid(int B, int Q, int S) {
+  return dim3((Q + THREADS * QPT - 1) / (THREADS * QPT), B, S);
+}
+
+// After a split race's launch: check it, then merge its S chunks' (min,
+// argmin) pairs [S, n] into out_d / out_i [n].
+int merge_one(const float* part_d, const int* part_i, float* out_d, int* out_i, long long n,
+              int S, cudaStream_t st) {
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  MinOut out = {{out_d, nullptr, nullptr, nullptr}, {out_i, nullptr, nullptr, nullptr}};
+  merge_min<<<merge_grid(n, 1), SEARCH_THREADS, 0, st>>>(part_d, part_i, out, n, S);
+  return (int)cudaGetLastError();
+}
+
+// nn1_masked's launches: whole (S = 1) or split with the merge.
+template <RaceKind K>
+int launch_masked(const float* q, const int* ring_a, const int* ia, const float* r,
+                  const bool* mask, const int* ring, float* out_d, int* out_i, float* part_d,
+                  int* part_i, int B, int Q, int M, int r_bstride, float span, int S, int L,
+                  cudaStream_t st) {
+  if (S == 1) {
+    masked_kernel<K, WHOLE_QPT><<<race_grid<WHOLE_QPT>(B, Q, 1), THREADS, 0, st>>>(
+        q, ring_a, ia, r, mask, ring, out_d, out_i, Q, M, r_bstride, span, M, 0);
+    return (int)cudaGetLastError();
+  }
+  const long long n = (long long)B * Q;
+  masked_kernel<K, SPLIT_QPT><<<race_grid<SPLIT_QPT>(B, Q, S), THREADS, 0, st>>>(
+      q, ring_a, ia, r, mask, ring, part_d, part_i, Q, M, r_bstride, span, L, n);
+  return merge_one(part_d, part_i, out_d, out_i, n, S, st);
+}
+
 }  // namespace
 
 // C interface.  Pointers are device pointers of contiguous f32/i32 tensors:
@@ -353,25 +547,37 @@ dim3 grid_for(int B, int Q) { return dim3((Q + THREADS - 1) / THREADS, B); }
 // Each returns the cudaGetLastError() code of its launch (0 = launched).
 extern "C" {
 
-int cooper_nn1(const float* q, const float* r, const float* rn, float* out_d,
-               int* out_i, int B, int Q, int M, int r_bstride, void* stream) {
-  nn1_kernel<<<grid_for(B, Q), THREADS, 0, (cudaStream_t)stream>>>(
-      q, r, rn, out_d, out_i, Q, M, r_bstride);
-  return (int)cudaGetLastError();
+// Queries one block of a split nn1 / nn1_masked launch serves: the unit of
+// the caller's split plan.  A launch with S == 1 serves WHOLE_QPT per thread.
+int cooper_nn1_block_queries() { return THREADS * SPLIT_QPT; }
+
+// nn1 and nn1_masked read the reference as the caller holds it: r [*,M,3]
+// f32, mask [*,M] bool (one byte), ring [*,M] i32, ring_a and ia [B,Q] i32.
+// Block z scans [z*L, min(M, (z+1)*L)); the caller guarantees
+// (S-1)*L < M <= S*L.  With S > 1, part_d / part_i [S,B,Q] take the chunks'
+// results before merge_min joins them (unused, may be null, when S == 1).
+int cooper_nn1(const float* q, const float* r, const bool* mask, float* out_d, int* out_i,
+               float* part_d, int* part_i, int B, int Q, int M, int r_bstride, int S, int L,
+               void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (S == 1) {
+    nn1_kernel<WHOLE_QPT><<<race_grid<WHOLE_QPT>(B, Q, 1), THREADS, 0, st>>>(
+        q, r, mask, out_d, out_i, Q, M, r_bstride, M, 0);
+    return (int)cudaGetLastError();
+  }
+  const long long n = (long long)B * Q;
+  nn1_kernel<SPLIT_QPT><<<race_grid<SPLIT_QPT>(B, Q, S), THREADS, 0, st>>>(
+      q, r, mask, part_d, part_i, Q, M, r_bstride, L, n);
+  return merge_one(part_d, part_i, out_d, out_i, n, S, st);
 }
 
-int cooper_nn1_masked(const float* q, const float* ra, const int* ia,
-                      const float* r, const float* rn, const float* ring,
-                      float* out_d, int* out_i, int B, int Q, int M,
-                      int r_bstride, int mode_same, float span, void* stream) {
-  if (mode_same) {
-    masked_kernel<1><<<grid_for(B, Q), THREADS, 0, (cudaStream_t)stream>>>(
-        q, ra, ia, r, rn, ring, out_d, out_i, Q, M, r_bstride, span);
-  } else {
-    masked_kernel<0><<<grid_for(B, Q), THREADS, 0, (cudaStream_t)stream>>>(
-        q, ra, ia, r, rn, ring, out_d, out_i, Q, M, r_bstride, span);
-  }
-  return (int)cudaGetLastError();
+int cooper_nn1_masked(const float* q, const int* ring_a, const int* ia, const float* r,
+                      const bool* mask, const int* ring, float* out_d, int* out_i,
+                      float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
+                      int mode_same, float span, int S, int L, void* stream) {
+  return (mode_same ? launch_masked<RACE_SAME> : launch_masked<RACE_ADJ>)(
+      q, ring_a, ia, r, mask, ring, out_d, out_i, part_d, part_i, B, Q, M, r_bstride, span, S,
+      L, (cudaStream_t)stream);
 }
 
 // Queries one block of bc_races_kernel serves.

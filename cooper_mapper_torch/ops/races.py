@@ -24,9 +24,13 @@ ring ``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``).  Outputs are
 
 Dispatch follows the device: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel (``csrc/races.cu``) or raises.  Where the query
-blocks of a ``bc_races`` call would not give every SM of the card one, the
-kernel splits M across blocks and merges their results (``_split_plan``,
-``csrc/split.cuh``): the same bits as one scan over M.  An invalid
+blocks of an ``nn1``, ``nn1_masked`` or ``bc_races`` call would not give
+every SM of the card one, the kernel splits M across blocks and merges their
+results (``_split_plan``, ``csrc/split.cuh``): the same bits as one scan
+over M.  The ``nn1`` and ``nn1_masked`` kernels read the mask and the int32
+rings as they are and form ``|r|^2``, ``BIG`` and the f32 rings themselves,
+so those two wrappers launch their kernel (and the merge) and nothing
+else.  An invalid
 reference point carries ``|r|^2 = BIG`` and ring ``1e9``; a candidate that
 fails a ring test has distance exactly ``BIG``.  Ties go to the smaller
 index.  Kernel and plain version evaluate the distance with the same f32
@@ -136,12 +140,18 @@ def _fused_inputs(q, r_xyz, r_ring, r_mask):
     return B, Q, M, shared, _ref_norms(r_xyz, r_mask), _ref_rings(r_ring, r_mask)
 
 
-def _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask, mode="adj"):
-    """Validate a ring race's inputs and derive what both paths read:
-    (B, Q, M, shared, |r|^2 [*, M], ring [*, M] f32, ring_a [B, Q] f32)."""
+def _check_ring_race(q, ring_a, ia, r_xyz, r_ring, r_mask, mode):
+    """Validate a ring race's inputs; returns (B, Q, M, shared_reference)."""
     if mode not in ("same", "adj"):
         raise ValueError(f"mode must be 'same' or 'adj', got {mode!r}")
-    B, Q, M, shared = _check_race(q, r_xyz, r_mask, r_ring, ring_a, ia)
+    return _check_race(q, r_xyz, r_mask, r_ring, ring_a, ia)
+
+
+def _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask, mode="adj"):
+    """Validate a ring race's inputs and derive what the plain versions and
+    the bc_races kernel read: (B, Q, M, shared, |r|^2 [*, M], ring [*, M]
+    f32, ring_a [B, Q] f32)."""
+    B, Q, M, shared = _check_ring_race(q, ring_a, ia, r_xyz, r_ring, r_mask, mode)
     return (B, Q, M, shared, _ref_norms(r_xyz, r_mask), _ref_rings(r_ring, r_mask),
             ring_a.to(torch.float32))
 
@@ -289,17 +299,25 @@ def nn1(q, r_xyz, r_mask):
     """Race A: (idx [B, Q] int32, sq_dist [B, Q] f32)."""
     if not _require_device(q):
         return nn1_plain(q, r_xyz, r_mask)
+    return _nn1_cuda(q, r_xyz, r_mask)
+
+
+def _nn1_cuda(q, r_xyz, r_mask, plan=None):
+    """The nn1 kernel on CUDA tensors; ``plan`` = (S, L) overrides
+    ``_split_plan`` (the card tests pin chunk edges with it)."""
     from ..build import library
 
+    lib = library()
     B, Q, M, shared = _check_race(q, r_xyz, r_mask)
-    rn = _ref_norms(r_xyz, r_mask)
-    out_d = torch.empty((B, Q), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, Q), dtype=torch.int32, device=q.device)
-    _launch("nn1", q, library().cooper_nn1,
-            q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), B, Q, M, 0 if shared else M)
+    S, L = plan or _split_plan(B, Q, M, sm_count(q.device), lib.cooper_nn1_block_queries())
+    _check_plan(S, L, M)
+    d, i, part_d, part_i = _race_outputs(q.device, B, Q, S)
+    _launch("nn1", q, lib.cooper_nn1,
+            q.data_ptr(), r_xyz.data_ptr(), r_mask.data_ptr(), d.data_ptr(), i.data_ptr(),
+            _ptr(part_d), _ptr(part_i), B, Q, M, 0 if shared else M, S, L)
     nn1.launches += 1
-    return out_i, out_d
+    nn1.merges += S > 1
+    return i, d
 
 
 def nn1_masked(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
@@ -307,18 +325,38 @@ def nn1_masked(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
     """One ring-constrained race ("adj" or "same"): (idx, sq_dist) [B, Q]."""
     if not _require_device(q):
         return nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span)
+    return _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span)
+
+
+def _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span=2.5, plan=None):
+    """The nn1_masked kernel on CUDA tensors; ``plan`` = (S, L) overrides
+    ``_split_plan``."""
     from ..build import library
 
-    B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring,
-                                                      r_mask, mode)
-    out_d = torch.empty((B, Q), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, Q), dtype=torch.int32, device=q.device)
-    _launch("nn1_masked", q, library().cooper_nn1_masked,
-            q.data_ptr(), ra.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
-            rn.data_ptr(), ring.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            B, Q, M, 0 if shared else M, int(mode == "same"), float(ring_span))
+    lib = library()
+    B, Q, M, shared = _check_ring_race(q, ring_a, ia, r_xyz, r_ring, r_mask, mode)
+    S, L = plan or _split_plan(B, Q, M, sm_count(q.device), lib.cooper_nn1_block_queries())
+    _check_plan(S, L, M)
+    d, i, part_d, part_i = _race_outputs(q.device, B, Q, S)
+    _launch("nn1_masked", q, lib.cooper_nn1_masked,
+            q.data_ptr(), ring_a.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
+            r_mask.data_ptr(), r_ring.data_ptr(), d.data_ptr(), i.data_ptr(), _ptr(part_d),
+            _ptr(part_i), B, Q, M, 0 if shared else M, int(mode == "same"), float(ring_span),
+            S, L)
     nn1_masked.launches += 1
-    return out_i, out_d
+    nn1_masked.merges += S > 1
+    return i, d
+
+
+def _race_outputs(device, B, Q, S):
+    """(dist, idx) [B, Q] of one race and, where S > 1, the chunks' scratch
+    (dist, idx) [S, B, Q]."""
+    d = torch.empty((B, Q), dtype=torch.float32, device=device)
+    i = torch.empty((B, Q), dtype=torch.int32, device=device)
+    if S == 1:
+        return d, i, None, None
+    return (d, i, torch.empty((S, B, Q), dtype=torch.float32, device=device),
+            torch.empty((S, B, Q), dtype=torch.int32, device=device))
 
 
 def bc_races(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
@@ -381,9 +419,12 @@ def fused_races(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.
     return (ia, da, ib, db, ic, dc) if with_same else (ia, da, ic, dc)
 
 
+# merges: the calls that split M and so launched the merge (merge_min) too
 nn1.launches = 0
+nn1.merges = 0
 nn1_masked.launches = 0
+nn1_masked.merges = 0
 bc_races.launches = 0
-bc_races.merges = 0   # calls that split M and launched the merge (merge_min) too
+bc_races.merges = 0
 fused_races.launches = 0
 KERNELS = (nn1, nn1_masked, bc_races, fused_races)

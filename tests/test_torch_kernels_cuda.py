@@ -232,9 +232,13 @@ def test_split_plan_fills_the_card_at_the_single_stream_shapes(cuda):
     lib = __import__("cooper_mapper_torch.build", fromlist=["library"]).library()
     for Q, M, bq in ((8192, 65536, lib.cooper_knn_block_queries(5)),
                      (2048, 32768, lib.cooper_knn_block_queries(5)),
-                     (1024, 8192, lib.cooper_bc_races_block_queries())):
+                     (1024, 8192, lib.cooper_bc_races_block_queries()),
+                     (1024, 8192, lib.cooper_nn1_block_queries())):
         S, L = races._split_plan(1, Q, M, n_sm, bq)
         assert S > 1 and -(-Q // bq) * S >= n_sm
+    # nn1 / nn1_masked corner, 2 query blocks: the chunks are already the shortest
+    S, L = races._split_plan(1, 256, 2048, n_sm, lib.cooper_nn1_block_queries())
+    assert S > 1 and L < 2 * races.SPLIT_MIN_CHUNK
 
 
 @pytest.mark.cuda
@@ -295,6 +299,17 @@ def test_nan_query_comes_back_inf_and_first_slots(cuda, S):
         assert (float(dist[0, 17]), int(i[0, 17])) == want
     plain = races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, SPAN)
     assert all(torch.equal(a[0, keep], b[0, keep]) for a, b in zip((ib, db, ic, dc), plain))
+    # nn1 (+inf, 0); nn1_masked as bc_races' B ("same") and C ("adj")
+    i, dist = races._nn1_cuda(q, xyz, mask, plan=_plan(900, S))
+    assert (float(dist[0, 17]), int(i[0, 17])) == (float("inf"), 0)
+    assert all(torch.equal(a[0, keep], b[0, keep])
+               for a, b in zip((i, dist), races.nn1_plain(q, xyz, mask)))
+    for mode, (wi, wd) in (("same", (ib, db)), ("adj", (ic, dc))):
+        args = (q, ring_a, ia, xyz, ring, mask, mode, SPAN)
+        i, dist = races._nn1_masked_cuda(*args, plan=_plan(900, S))
+        assert (float(dist[0, 17]), int(i[0, 17])) == (float(wd[0, 17]), int(wi[0, 17]))
+        assert all(torch.equal(a[0, keep], b[0, keep])
+                   for a, b in zip((i, dist), races.nn1_masked_plain(*args)))
 
 
 @pytest.mark.cuda
@@ -310,6 +325,75 @@ def test_bc_races_split_equals_plain_under_ties_at_chunk_edges(cuda, M, S):
     torch.cuda.synchronize()
     assert races.bc_races.launches == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _race_cuda(race, q, xyz, ring, mask, plan=None):
+    """nn1 ("nn1") or nn1_masked ("adj", "same", with A's ring and index
+    from nn1_plain) through the card wrappers, and the plain version."""
+    if race == "nn1":
+        return races._nn1_cuda(q, xyz, mask, plan=plan), races.nn1_plain(q, xyz, mask)
+    ia, _ = races.nn1_plain(q, xyz, mask)
+    args = (q, take_ref(ring, ia, xyz.dim() == 2), ia, xyz, ring, mask, race, SPAN)
+    return races._nn1_masked_cuda(*args, plan=plan), races.nn1_masked_plain(*args)
+
+
+def _race_counters(race):
+    k = races.nn1 if race == "nn1" else races.nn1_masked
+    return k.launches, k.merges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("race", ["nn1", "adj", "same"])
+@pytest.mark.parametrize("M,S", [(600, 4), (41, 8), (41, 41), (8192, 128)])
+def test_nn1_and_masked_split_equal_plain_under_ties_at_chunk_edges(cuda, race, M, S):
+    # duplicates straddling the chunk edges, one-point chunks (S = M), a
+    # chunk per 64 points at the single-stream surf size; the launch and
+    # merge counters move by one call and by one merge where S > 1
+    plan = _plan(M, S)
+    q, xyz, ring, mask = _tied(8, 2, 300, M, cuda, edges=range(plan[1], M, plan[1]))
+    before = _race_counters(race)
+    got, want = _race_cuda(race, q, xyz, ring, mask, plan)
+    torch.cuda.synchronize()
+    assert _race_counters(race) == (before[0] + 1, before[1] + (plan[0] > 1))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("race", ["nn1", "adj", "same"])
+@pytest.mark.parametrize("B,Q,M", [(1, 1024, 8192), (1, 256, 2048), (512, 256, 256),
+                                   (3, 700, 5000)])
+def test_nn1_and_masked_counters_follow_the_split_plan(cuda, race, B, Q, M):
+    # the default plan at the single-stream and odometry batch shapes: a
+    # merge exactly where _split_plan splits M
+    lib = __import__("cooper_mapper_torch.build", fromlist=["library"]).library()
+    S, _ = races._split_plan(B, Q, M, races.sm_count(cuda), lib.cooper_nn1_block_queries())
+    q, xyz, ring, mask = _problem(16, B, Q, M, False, cuda)
+    before = _race_counters(race)
+    if race == "nn1":
+        got, want = races.nn1(q, xyz, mask), races.nn1_plain(q, xyz, mask)
+    else:
+        ia, _ = races.nn1_plain(q, xyz, mask)
+        args = (q, take_ref(ring, ia, True), ia, xyz, ring, mask, race, SPAN)
+        got, want = races.nn1_masked(*args), races.nn1_masked_plain(*args)
+    torch.cuda.synchronize()
+    assert _race_counters(race) == (before[0] + 1, before[1] + (S > 1))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("S", [1, 5])
+def test_all_invalid_reference_gives_the_plain_answer(cuda, per_problem, S):
+    # nn1 and nn1_masked form |r|^2 = BIG and the ring 1e9 of an invalid
+    # point in the kernel.  With every point invalid, race A's distances
+    # (|q|^2 - 2 q.r) + BIG all round to BIG here (|q|, |r| <= 14 m), so the
+    # first point wins; every ring race fails everywhere: (BIG, 0) too
+    q, xyz, ring, mask = _problem(17, 2, 300, 700, per_problem, cuda)
+    mask = torch.zeros_like(mask)
+    for race in ("nn1", "adj", "same"):
+        got, want = _race_cuda(race, q, xyz, ring, mask, _plan(700, S))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (got[0] == 0).all() and (got[1] == np.float32(races.BIG)).all()
 
 
 @pytest.mark.cuda

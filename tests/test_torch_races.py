@@ -184,11 +184,15 @@ def test_wrappers_reject_bad_inputs():
 # The split of M across blocks (csrc/split.cuh): the plan and the merge law
 # ---------------------------------------------------------------------------
 
-H100_SMS, BC_BLOCK_QUERIES = 132, 128      # the card's SMs; 128 threads, 1 query each
+# The card's SMs; the plan's query block: 128 threads, 1 query each, for
+# bc_races and for a split nn1 / nn1_masked launch (a whole one serves 2
+# queries per thread, csrc/races.cu)
+H100_SMS, BC_BLOCK_QUERIES = 132, 128
 
 
 @pytest.mark.parametrize("B,Q,M,S_min", [
     (512, 768, 3840, 1),     # odometry batch: already 3072 blocks, no split
+    (512, 256, 256, 1),      # odometry batch corner: 1024 blocks, no split
     (8, 768, 3840, 1),       # 48 blocks: split
     (1, 1024, 8192, 66),     # single-stream surf: 8 query blocks
     (1, 256, 2048, 32),      # single-stream corner shapes: 2 query blocks
@@ -259,3 +263,48 @@ def test_bc_races_are_the_ordered_merge_of_chunks(per_problem):
                               (_merge_min(parts_c), want[2], want[3])):
             np.testing.assert_array_equal(got[1], w_d)
             np.testing.assert_array_equal(got[0], w_i)
+
+
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+@pytest.mark.parametrize("race", ["nn1", "adj", "same"])
+def test_nn1_and_masked_are_the_ordered_merge_of_chunks(race, per_problem):
+    # race A and each ring race over the whole equal the chunk-order merge of
+    # the race over each chunk (indices offset, ia taken relative to the
+    # chunk), under heavy ties, duplicates straddling chunk edges and chunks
+    # of one point
+    B_, Q_, M_ = 2, 60, 90
+    rng = np.random.RandomState(22)
+    lead = (B_,) if per_problem else ()
+    q = rng.randint(-3, 4, (B_, Q_, 3)).astype(np.float32)
+    xyz = rng.randint(-3, 4, lead + (M_, 3)).astype(np.float32)
+    for e in (30, 61):
+        xyz[..., e - 2:e + 2, :] = xyz[..., e - 2:e - 1, :]
+    ring = rng.randint(0, 4, lead + (M_,)).astype(np.int32)
+    mask = rng.rand(*(lead + (M_,))) > 0.1
+    tq, tx, tr, tm = _t(q), _t(xyz), _t(ring), _t(mask)
+    ia, _ = races.nn1_plain(tq, tx, tm)
+    ring_a = tr[ia.long()] if not per_problem else torch.gather(tr, 1, ia.long())
+    ring_a[:, ::7] = torch.from_numpy(rng.randint(0, 4, ring_a[:, ::7].shape).astype(np.int32))
+
+    def run(a, b):
+        sl = (lambda t: t[a:b]) if not per_problem else (lambda t: t[:, a:b])
+        x, r, m = (sl(t).contiguous() for t in (tx, tr, tm))
+        if race == "nn1":
+            return races.nn1_plain(tq, x, m)
+        return races.nn1_masked_plain(tq, ring_a, ia - a, x, r, m, race, SPAN)
+
+    w_i, w_d = (t.numpy() for t in run(0, M_))
+    big_chunks = 0   # chunk results at BIG (ring races: a winner that failed its ring test)
+    cut_sets = [[0, 30, 61, M_], [0, 1, 2, 29, 30, 31, M_], [0, 45, M_], [0, 89, M_]]
+    cut_sets += [[0, *sorted(rng.choice(np.arange(1, M_), 12, replace=False)), M_]
+                 for _ in range(3)]
+    for cuts in cut_sets:
+        parts = []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            i, d = run(a, b)
+            parts.append(((i + a).numpy(), d.numpy()))
+            big_chunks += int((d == races.BIG).sum())
+        got_i, got_d = _merge_min(parts)
+        np.testing.assert_array_equal(got_d, w_d)
+        np.testing.assert_array_equal(got_i, w_i)
+    assert big_chunks > 0 or race == "nn1"

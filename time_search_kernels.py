@@ -1,8 +1,9 @@
-"""Device times of the k-NN and bc_races kernels at the main paths' shapes,
-for one checkout of the port at a time, on one NVIDIA card.
+"""Device times of the search kernels (k-NN, bc_races, nn1, nn1_masked) at
+the main paths' shapes, for one checkout of the port at a time, on one
+NVIDIA card.
 
     python3 time_search_kernels.py --save-inputs FILE
-    python3 time_search_kernels.py --inputs FILE [--root DIR] [--label NAME]
+    python3 time_search_kernels.py --inputs FILE [--root DIR] [--label NAME] [--only KINDS]
 
 ``--save-inputs`` builds the searches' inputs on the card with
 ``chip_smoke.py``'s problem builders and saves them:
@@ -17,7 +18,12 @@ for one checkout of the port at a time, on one NVIDIA card.
 * bc_races 512x768 vs 3840: the odometry batch solve's surf races at its
   first correspondence refresh (phase 3);
 * bc_races 1x1024 vs 8192: the single-stream drive's first surf search
-  (phase 8).
+  (phase 8);
+* nn1 512x768 vs 3840 and 512x256 vs 256, nn1_masked "adj" 512x256 vs 256:
+  the odometry batch solve's surf and corner searches at its first
+  correspondence refresh (phase 3);
+* nn1 1x1024 vs 8192 and 1x256 vs 2048, nn1_masked "adj" 1x256 vs 2048: the
+  single-stream drive's first surf and corner searches (phase 8).
 
 The second form imports ``cooper_mapper_torch`` from ``--root`` (default:
 this checkout), so that two commits can be timed on the same inputs, in
@@ -26,7 +32,8 @@ checks the kernel against its plain version, bit for bit, then prints one
 JSON line with, per search: the wrapper's ms per call (CUDA events over 20
 calls after 2 warm-ups, as ``chip_smoke.py`` times them); the device ms per
 call of the port's own kernels in it (``torch.profiler`` over 20 calls, as
-``profile_torch_solve.py`` reports them), with their launches per call; the
+``profile_torch_solve.py`` reports them), with their launches per call, and
+of every kernel the call launches (the wrapper's input prep included); the
 bound (``chip_smoke.py``'s pairs x FP32 operations per pair over the non-FMA
 FP32 rate); the card's name and power limit.  A design variant is timed the
 same way: edit its constant in a copy of the checkout and pass ``--root``.
@@ -47,7 +54,8 @@ import chip_smoke as cs
 
 REPS = 20
 # the port's own kernels, by the names the profiler shows (a name contains one)
-OWN_KERNELS = ("knn_kernel", "bc_races_kernel", "merge_first_k", "merge_min")
+OWN_KERNELS = ("knn_kernel", "bc_races_kernel", "nn1_kernel", "masked_kernel", "merge_first_k",
+               "merge_min")
 
 
 def save_inputs(path):
@@ -75,25 +83,36 @@ def save_inputs(path):
     for tag, (q, _, sur) in cs.mapping_knn_inputs(cfg, sweeps, dev).items():
         out[f"knn 1x{q.shape[1]} vs {sur.xyz.shape[0]} ({tag})"] = dict(kind="knn", q=q,
                                                                        **ref(sur))
-    fq, s_ref = clouds[1], clouds[3]
+    sq, fq, c_ref, s_ref = clouds
     ra, ia = cs.race_a_ring(fq, s_ref)
     out["bc_races 1x1024 vs 8192"] = dict(kind="bc_races", q=fq, ra=ra, ia=ia, **ref(s_ref))
+    out["nn1 1x1024 vs 8192"] = dict(kind="nn1", q=fq, **ref(s_ref))
+    out["nn1 1x256 vs 2048"] = dict(kind="nn1", q=sq, **ref(c_ref))
+    ra, ia = cs.race_a_ring(sq, c_ref)
+    out["nn1_masked adj 1x256 vs 2048"] = dict(kind="nn1_masked", q=sq, ra=ra, ia=ia, **ref(c_ref))
 
-    # odometry batch (phase 3): the de-warped surf queries of the first refresh
-    _, flat1, _, ref_s, _ = cs.make_problem(dev)
-    flat = cs.tile(flat1, cs.BATCH)
+    # odometry batch (phase 3): the de-warped queries of the first refresh
+    sharp1, flat1, ref_c, ref_s, _ = cs.make_problem(dev)
     xb = torch.from_numpy((0.02 * np.random.RandomState(0).randn(cs.BATCH, 6))
                           .astype(np.float32)).to(dev)
-    qs = twist.warp_to_start(xb, flat.xyz, flat.rel_time).contiguous()
+    warp = lambda c: twist.warp_to_start(xb, c.xyz, c.rel_time).contiguous()
+    qs, qc = warp(cs.tile(flat1, cs.BATCH)), warp(cs.tile(sharp1, cs.BATCH))
     ra, ia = cs.race_a_ring(qs, ref_s)
     out["bc_races 512x768 vs 3840"] = dict(kind="bc_races", q=qs, ra=ra, ia=ia, **ref(ref_s))
+    out["nn1 512x768 vs 3840"] = dict(kind="nn1", q=qs, **ref(ref_s))
+    out["nn1 512x256 vs 256"] = dict(kind="nn1", q=qc, **ref(ref_c))
+    ra, ia = cs.race_a_ring(qc, ref_c)
+    out["nn1_masked adj 512x256 vs 256"] = dict(kind="nn1_masked", q=qc, ra=ra, ia=ia,
+                                                **ref(ref_c))
     torch.save({k: {n: (t.cpu() if torch.is_tensor(t) else t) for n, t in v.items()}
                 for k, v in out.items()}, path)
     print(json.dumps({k: tuple(v["q"].shape) + tuple(v["xyz"].shape) for k, v in out.items()}))
 
 
 def device_ms(fn):
-    """(device ms per call of the port's kernels, their launches per call)."""
+    """(device ms per call of the port's kernels, their launches per call,
+    device ms per call of every kernel the call launches: the wrapper's
+    input prep too)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -101,15 +120,16 @@ def device_ms(fn):
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-          and any(k in e.name for k in OWN_KERNELS)]
-    return sum(e.time_range.elapsed_us() for e in ev) / REPS / 1e3, len(ev) / REPS
+    every = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = [e for e in every if any(k in e.name for k in OWN_KERNELS)]
+    ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / REPS / 1e3
+    return ms(ev), len(ev) / REPS, ms(every)
 
 
-def time_tree(path, label):
+def time_tree(path, label, only=None):
     from cooper_mapper_torch.ops import knn, races
 
-    data = torch.load(path)
+    data = {k: v for k, v in torch.load(path).items() if not only or v["kind"] in only}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     res = {"label": label, "module": os.path.dirname(knn.__file__), "card": smi}
@@ -119,6 +139,13 @@ def time_tree(path, label):
         if v["kind"] == "knn":
             kern = lambda: knn.knn(q, r, m, 5)
             plain = knn.knn_plain(q, r, m, 5)
+        elif v["kind"] == "nn1":
+            kern = lambda: races.nn1(q, r, m)
+            plain = races.nn1_plain(q, r, m)
+        elif v["kind"] == "nn1_masked":
+            args = (q, t["ra"], t["ia"], r, t["ring"], m, "adj", 2.5)
+            kern = lambda: races.nn1_masked(*args)
+            plain = races.nn1_masked_plain(*args)
         else:
             args = (q, t["ra"], t["ia"], r, t["ring"], m, 2.5)
             kern = lambda: races.bc_races(*args)
@@ -129,9 +156,9 @@ def time_tree(path, label):
             raise SystemExit(f"time_search_kernels FAILED: {name} differs from its plain version")
         B, Q, _ = q.shape
         pairs = B * Q * r.shape[-2]
-        dms, launches = device_ms(kern)
+        dms, launches, all_ms = device_ms(kern)
         res[name] = {"wrapper_ms": cs.time_ms(kern, REPS), "device_ms": dms,
-                     "kernel_launches_per_call": launches,
+                     "kernel_launches_per_call": launches, "device_ms_all_kernels": all_ms,
                      "bound_ms": pairs * cs.OPS_PER_PAIR[v["kind"]] / cs.FP32_PEAK_OPS * 1e3}
         print(f"{label} {name}: {res[name]}", flush=True)
     print(json.dumps(res), flush=True)
@@ -143,6 +170,8 @@ def main():
     ap.add_argument("--inputs")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--only", help="comma-separated kinds to time (knn, bc_races, nn1, "
+                                   "nn1_masked); default all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_search_kernels: no CUDA device")
@@ -153,7 +182,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     import cooper_mapper_torch  # noqa: F401
 
-    time_tree(args.inputs, args.label)
+    time_tree(args.inputs, args.label, args.only and args.only.split(","))
 
 
 if __name__ == "__main__":
