@@ -60,12 +60,18 @@ Phases, each announced on its own line as it starts:
    bit on every query, at the B = 1 shapes; kernel, plain and library times
    beside the bound, for the fused kernel and, where they split M across
    blocks, for the split kernels at the B = 1 shapes: bc_races and nn1 at
-   1 x 1024 vs 8192, nn1 and nn1_masked "adj" at 1 x 256 vs 2048;
+   1 x 1024 vs 8192, nn1 and nn1_masked "adj" at 1 x 256 vs 2048; at each
+   of the four fused shapes the fused kernel's device ms (profiler) beside
+   the split route's (nn1, then bc_races or nn1_masked "adj", their merges
+   and the ring gather); then merge_min against its plain version, bit for
+   bit, on the chunks' results of the split races at the B = 1 shapes (S = 66
+   of 1024 queries, S = 32 of 256, and S = 32 of 1024), with its times;
 9. the single-stream drive on the split route (the default), with
    ``COOPER_PALLAS_FUSED=1``, and on the split route again, every launch
    counter at 0 before each: per odometry sweep 10 + 5 + 5 split race
    launches and no fused one, or 10 fused and no split one, and of the
-   split ones the merges that ``_split_plan`` implies at B = 1; 22 k-NN
+   split ones the merges that ``_split_plan`` implies at B = 1 (as many
+   merge_min launches; none on the fused route); 22 k-NN
    launches per mapping sweep; poses bit-identical on both routes and on
    the repeat; the final position within 0.3 m of the simulator's
    (tests/test_pipeline.py::TestFusedSteps' bound); a non-empty map; ms per
@@ -88,6 +94,10 @@ Phases, each announced on its own line as it starts:
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
    so also launched the merge kernel; nn1's corner shape of phase 3 is under
+   ``more_shapes``; the fused_races row's launches are the fused route's
+   drive's, its shape the single-stream surf search and its other three
+   shapes under ``more_shapes``; the merge_min row's launches are the split
+   route's drive's, at S = 66 of 1024 queries with S = 32 under
    ``more_shapes``), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
@@ -127,8 +137,10 @@ HBM_BYTES_PER_S = 3.35e12
 # follow a successful compare are left out.
 # The fused search does the function's work once per pair: 8 for d, 1 for
 # A's running minimum, then C's ring test and minimum (4) and, for surf, B's
-# (2): 15 (surf) or 13 (corner).  Its kernel computes d twice (two passes),
-# so it issues 23 or 21: the bound below is the function's, not the design's.
+# (2): 15 (surf) or 13 (corner).  Its kernel computes d in both of its passes
+# (race A by group minima, 9; then C, or B and C from one d and one ring
+# difference, 12 or 14 with the settled rule), so it issues about 21 or 23:
+# the bound below is the function's, not the design's.
 OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14, "knn": 9,
                 "fused_races": 15, "fused_races_corner": 13}
 # Scan-to-map path: benchmarks/bench_scan_match.py's problem and batch
@@ -146,10 +158,11 @@ def log(msg):
 
 def kernels():
     """Every kernel wrapper of the port, each with its launch counter:
-    nn1, nn1_masked, bc_races, fused_races, knn."""
+    nn1, nn1_masked, bc_races, fused_races, merge_min (counted where the
+    split races launch it), knn."""
     from cooper_mapper_torch.ops import knn, races
 
-    return races.KERNELS + knn.KERNELS
+    return races.KERNELS + (races.merge_min,) + knn.KERNELS
 
 
 def reset_launches():
@@ -251,6 +264,38 @@ def time_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, names, reps=20, tries=3):
+    """(device ms per call of the kernels whose names contain one of
+    ``names``, their launches per call, device ms per call of every kernel
+    the call launches, and the first group's ms per call by name), from
+    ``torch.profiler`` over ``reps`` calls after one warm-up.  A trace that
+    lost events (a kernel seen a number of times that is not a multiple of
+    ``reps``) is taken again, up to ``tries`` times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        every = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {}
+        for e in every:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if all(c % reps == 0 for c in counts.values()):
+            break
+    ev = [e for e in every if any(k in e.name for k in names)]
+    ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+    by_kernel = {k: ms([e for e in ev if k in e.name]) for k in names}
+    return ms(ev), len(ev) / reps, ms(every), {k: v for k, v in by_kernel.items() if v}
+
+
+# the port's own search kernels, by the names the profiler shows
+OWN_KERNELS = ("knn_kernel", "bc_races_kernel", "nn1_kernel", "masked_kernel",
+               "fused_races_kernel", "merge_first_k", "merge_min")
 
 
 def compare_race(label, kernel_out, plain_out):
@@ -427,7 +472,7 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
     launches, merges = read_launches(), read_merges()
     n_blocks = -(-cfg.max_iterations // cfg.refresh_every)
     expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks,
-                "fused_races": 0, "knn": 0}
+                "fused_races": 0, "merge_min": 0, "knn": 0}
     log(f"    launches in the main-path run: {launches} (expected {expected}); of them "
         f"split with a merge launch: {merges}")
     if launches != expected or min(launches[k] for k in ("nn1", "nn1_masked", "bc_races")) <= 0:
@@ -628,7 +673,7 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     res = sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, x0, cfg)
     torch.cuda.synchronize()
     launches, merges = read_launches(), read_merges()
-    expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 0,
+    expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 0, "merge_min": 0,
                 "knn": 2 * (cfg.max_iterations + 1)}
     log(f"    launches in the scan-to-map run: {launches} (expected {expected}); of them "
         f"split with a merge launch: {merges}")
@@ -772,6 +817,17 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
             return res
 
         args = (q, ref.xyz, ref.ring, ref.mask, with_same, span)
+        shared = ref.xyz.dim() == 2
+
+        def split_route():
+            ia, da = races.nn1(q, ref.xyz, ref.mask)
+            ring_a = neighbors.take_ref(ref.ring, ia, shared)
+            if with_same:
+                return races.bc_races(q, ring_a, ia, ref.xyz, ref.ring, ref.mask, span)
+            return races.nn1_masked(q, ring_a, ia, ref.xyz, ref.ring, ref.mask, "adj", span)
+
+        dev_ms, _, dev_all, _ = device_ms(lambda: races.fused_races(*args), OWN_KERNELS)
+        split_ms, _, split_all, split_by = device_ms(split_route, OWN_KERNELS)
         ms = time_ms(lambda: races.fused_races(*args), reps=20)
         plain_ms = time_ms(lambda: races.fused_races_plain(*args), reps=3, warmup=1)
         library_ms = time_ms(lib, reps=3, warmup=1)
@@ -779,13 +835,20 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         t_ops = pairs * OPS_PER_PAIR["fused_races" if with_same else "fused_races_corner"] \
             / FP32_PEAK_OPS * 1e3
         t_bytes = fused_bytes(B, Q, M, 3 if with_same else 2) / HBM_BYTES_PER_S * 1e3
+        G, qpt = races._fused_plan(B, Q, races.sm_count(dev))
         row = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", plan=[G, qpt],
+                   device_ms=dev_ms, device_ms_all_kernels=dev_all,
+                   split_route_device_ms=split_ms, split_route_device_ms_all_kernels=split_all,
+                   split_route_device_ms_by_kernel=split_by)
         out[label] = row
-        log(f"    fused_races {label} [{row['shape']}, {pairs:.3g} pairs, blocks "
-            f"{-(-Q // 128) * B}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
-            f"{library_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log(f"    fused_races {label} [{row['shape']}, {pairs:.3g} pairs, G={G} lanes per "
+            f"query, {qpt} per thread, blocks {-(-Q // (128 // G * qpt)) * B}]: kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}; every kernel of the call {dev_all:.4f}), "
+            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the split route's device ms "
+            f"{split_ms:.4f} ({split_by}; with the ring gather {split_all:.4f})")
     log(f"    the split kernels at the single-stream shapes, M split across blocks "
         f"({RACE_TIMES})")
     q, ref, a_err, d_err, ring_a, ia = single["single-stream surf"]
@@ -794,7 +857,73 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
     q, ref, a_err, d_err, ring_a, ia = single["single-stream corner"]
     out["nn1 single-stream corner"] = race_times("nn1", q, ref, a_err)
     out["nn1_masked single-stream"] = race_times("nn1_masked", q, ref, d_err, ring_a, ia, span)
+    out.update(merge_phase(single))
     return out
+
+
+def chunk_partials(q, ref, S, race, ra=None, ia=None):
+    """The (min, argmin) pairs [searches, S, Q] that a race split into S
+    chunks writes before merge_min: the plain race over each chunk of the
+    reference, indices offset (B = 1, shared reference); ``race`` is "nn1"
+    or "bc_races" (two searches, with A's ring ``ra`` and index ``ia``)."""
+    from cooper_mapper_torch.ops import races
+
+    M = ref.xyz.shape[0]
+    L = -(-M // S)
+    parts = []
+    for z in range(S):
+        a, b = z * L, min(M, (z + 1) * L)
+        x, m, rg = (t[a:b].contiguous() for t in (ref.xyz, ref.mask, ref.ring))
+        if race == "nn1":
+            i, d = races.nn1_plain(q, x, m)
+            parts.append([(i + a, d)])
+        else:
+            ib, db, ic, dc = races.bc_races_plain(q, ra, ia - a, x, rg, m, 2.5)
+            parts.append([(ib + a, db), (ic + a, dc)])
+    pd = torch.stack([torch.stack([p[k][1][0] for p in parts]) for k in range(len(parts[0]))])
+    pi = torch.stack([torch.stack([p[k][0][0] for p in parts]) for k in range(len(parts[0]))])
+    return pd.contiguous(), pi.contiguous()
+
+
+def merge_phase(single):
+    """merge_min against its plain version, bit for bit, on the chunks'
+    results of the split races at the single-stream shapes: nn1 at 1 x 1024
+    vs 8192 as its plan splits it (S = 66) and into S = 32, nn1 at 1 x 256
+    vs 2048 (S = 32), bc_races' two searches at 1 x 1024 (S = 66); its
+    times as kernels-line rows ("merge S=..")."""
+    from cooper_mapper_torch.build import library
+    from cooper_mapper_torch.ops import races
+
+    q_s, ref_s, _, _, ring_a, ia = single["single-stream surf"]
+    q_c, ref_c = single["single-stream corner"][:2]
+    n_sm = races.sm_count(q_s.device)
+    plan = lambda q, ref, bq: races._split_plan(1, q.shape[1], ref.xyz.shape[0], n_sm, bq)[0]
+    nn1_bq = library().cooper_nn1_block_queries()
+    S_s, S_c = plan(q_s, ref_s, nn1_bq), plan(q_c, ref_c, nn1_bq)
+    S_bc = plan(q_s, ref_s, library().cooper_bc_races_block_queries())
+    cases = [(f"S={S_s} n={q_s.shape[1]}", chunk_partials(q_s, ref_s, S_s, "nn1")),
+             (f"S=32 n={q_s.shape[1]}", chunk_partials(q_s, ref_s, 32, "nn1")),
+             (f"S={S_c} n={q_c.shape[1]}", chunk_partials(q_c, ref_c, S_c, "nn1")),
+             (f"S={S_bc} n={q_s.shape[1]} x2 (bc_races)",
+              chunk_partials(q_s, ref_s, S_bc, "bc_races", ring_a, ia))]
+    log("    merge_min vs merge_min_plain on the split races' chunk results; times (CUDA events; "
+        "device ms from the profiler; library = part_d.min(1), the reduction alone)")
+    rows = {}
+    for tag, (pd, pi) in cases:
+        err = compare_exact(f"merge_min {tag}", races.merge_min(pd, pi),
+                            races.merge_min_plain(pd, pi))
+        searches, S, n = pd.shape
+        ms = time_ms(lambda: races.merge_min(pd, pi), reps=20)
+        dev_ms = device_ms(lambda: races.merge_min(pd, pi), ("merge_min",))[0]
+        plain_ms = time_ms(lambda: races.merge_min_plain(pd, pi), reps=3, warmup=1)
+        library_ms = time_ms(lambda: pd.min(1), reps=3, warmup=1)
+        t_bytes = (searches * S * n * 8 + searches * n * 8) / HBM_BYTES_PER_S * 1e3
+        rows[f"merge {tag}"] = row = dict(
+            shape=f"{searches}x{S}x{n}", err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=t_bytes, bound_by="bytes")
+        log(f"    merge_min {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+            f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {t_bytes:.5f} ms (bytes)")
+    return rows
 
 
 def build_sweeps(device, n=SS_SWEEPS, width=WIDTH, n_rings=RINGS, size=(30.0, 4.0, 60.0),
@@ -836,6 +965,7 @@ def drive_stream(cfg, sweeps, device, fused_route, label, check_launches=True):
     race = ({"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 10} if fused_route
             else {"nn1": 10, "nn1_masked": 5, "bc_races": 5, "fused_races": 0})
     race_merges = split_race_merges(cfg, race["bc_races"], device) if on_card else {}
+    race["merge_min"] = sum(race_merges.values())   # one launch per merging call
     reset_launches()
     total = dict.fromkeys(read_launches(), 0)
     stride = max(cfg.mapping_stride, 1)
@@ -1146,14 +1276,22 @@ def main():
     ss_launches = runs["split"]["launches"]
     ss_stats = {r: dict(stat=v["stat"]) for r, v in runs.items()}
     kern["fused_races"] = fused_rows["single-stream surf"]
+    launches["merge_min"] = runs["split"]["launches"]["merge_min"]
+    merge_rows = [v for k, v in fused_rows.items() if k.startswith("merge ")]
+    kern["merge_min"] = merge_rows[0]
     # the B = 1 shapes of the split route, where the kernels split M
     single_stream = {"nn1": [fused_rows["nn1 single-stream surf"],
                              fused_rows["nn1 single-stream corner"]],
                      "nn1_masked": [fused_rows["nn1_masked single-stream"]],
                      "bc_races": [fused_rows["bc_races single-stream"]],
                      "knn": list(mapping_knn_phase(ss_cfg, sweeps, device).values())}
-    # the main path's other shapes of a kernel (nn1: the corner search)
-    more_shapes = {"nn1": [kern.pop("nn1 corner")]}
+    # the main path's other shapes of a kernel (nn1: the corner search; the
+    # fused kernel: the drive's corner search and the bench's two; merge_min:
+    # the other chunkings)
+    more_shapes = {"nn1": [kern.pop("nn1 corner")],
+                   "fused_races": [fused_rows[k] for k in ("single-stream corner", "bench surf",
+                                                           "bench corner")],
+                   "merge_min": merge_rows[1:]}
     loc_steady, loc_seed = localization_phase(runs["split"]["state"].map, frame, ss_cfg, device)
     del runs
     reduced_dx = reduced_card_vs_cpu_phase(device)
@@ -1162,10 +1300,14 @@ def main():
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
                "bc_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:301", "races.cu"),
                "fused_races": ("cooper_mapper_tpu/ops/pallas/nn1.py:416", "races.cu"),
+               # no TPU counterpart: the merge of the split searches of nn1.py:69, :173, :301
+               "merge_min": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "split.cuh"),
                "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
+    extra = ("device_ms", "plan", "split_route_device_ms")
     fields = lambda v: {"max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
                         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-                        "library_ms": v["library_ms"], "shape": v["shape"]}
+                        "library_ms": v["library_ms"], "shape": v["shape"],
+                        **{k: v[k] for k in extra if k in v}}
     rows = [{
         "name": k, "route": "cuda", "source": f"cooper_mapper_torch/csrc/{sources[k][1]}",
         "replaces": sources[k][0], "launches": launches[k], **fields(v),

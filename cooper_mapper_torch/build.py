@@ -102,7 +102,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.cooper_nn1.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
         lib.cooper_nn1_block_queries.argtypes = []
         lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I,
@@ -110,11 +110,15 @@ def library() -> ctypes.CDLL:
         lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,
                                         P]
         lib.cooper_bc_races_block_queries.argtypes = []
-        lib.cooper_fused_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
+        lib.cooper_fused_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I,
+                                           P]
+        lib.cooper_fused_block_threads.argtypes = []
+        lib.cooper_merge_min.argtypes = [P, P, P, P, LL, I, I, P]
         lib.cooper_knn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.cooper_knn_block_queries.argtypes = [I]
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
-                   lib.cooper_fused_races, lib.cooper_knn, lib.cooper_nn1_block_queries,
+                   lib.cooper_fused_races, lib.cooper_fused_block_threads,
+                   lib.cooper_merge_min, lib.cooper_knn, lib.cooper_nn1_block_queries,
                    lib.cooper_bc_races_block_queries, lib.cooper_knn_block_queries):
             fn.restype = ctypes.c_int
         _lib = lib

@@ -18,10 +18,10 @@
 // race replaces d by BIG where the candidate fails the ring test.  The output
 // is (min_j d, first j attaining it), as a scan in index order with a strict
 // "<" gives it: ties go to the smaller index, exactly like torch.argmin and
-// the TPU kernels.  nn1_kernel and masked_kernel form |r|^2, BIG, the f32
-// ring and ring_a's f32 themselves from the caller's mask (bool) and rings
-// (int32); bc_races_kernel and fused_races_kernel take them from the wrapper.
-//
+// the TPU kernels.  nn1_kernel, masked_kernel and fused_races_kernel form
+// |r|^2, BIG, the f32 ring and ring_a's f32 themselves from the caller's mask
+// (bool) and rings (int32); bc_races_kernel takes them from the wrapper.
+
 // Rounding.  Every multiply and add is spelled with __fmul_rn / __fadd_rn /
 // __fsub_rn, which nvcc never contracts into an FMA.  The order is the plain
 // PyTorch version's (cooper_mapper_torch/ops/races.py):
@@ -35,8 +35,8 @@
 // What bounds it on this card.  Per (query, reference) pair a race does 8
 // FP32 operations for the distance and 1-4 more for the ring test and the
 // running minimum, and reads nothing from device memory: the reference tile
-// sits in shared memory and every thread of a block reads the same element
-// (a broadcast).  The inputs are a few MB per call, so the kernels are bound
+// sits in shared memory and every thread of a warp reads the same element
+// (a broadcast; G consecutive ones in the fused kernel).  The inputs are a few MB per call, so the kernels are bound
 // by FP32 issue rate, not by bandwidth.
 //
 // What the designs do about it.  All four kernels keep their queries' running
@@ -80,24 +80,43 @@
 // the grid would not fill the card (B = 1 in the single-stream sweep: 1024
 // queries are 4-8 blocks for 132 SMs).  The grid is (query blocks, B, S);
 // block z scans one chunk of M and writes its (min, argmin) pairs to scratch,
-// and merge_min (split.cuh) joins them in chunk order.  The wrapper picks S
+// and merge_min (split.cuh) joins them: a lexicographic (d, chunk) minimum
+// taken by several threads per query, no serial chain.  The wrapper picks S
 // from B, Q, M and the card's SM count (ops/races._split_plan); S = 1 writes
 // the output directly, no merge.  Why the merge gives the same bits as one
 // scan: split.cuh.
 
-// fused_races_kernel.  The TPU kernel holds the whole [tile_q, M] distance
-// tile in VMEM, takes A's argmin, extracts A's ring with a masked min (Mosaic
-// has no per-lane gather) and runs B and C on the same tile.  Here a thread
-// cannot hold its row of M distances, and B and C need A's ring before they
-// can mask, so the kernel makes two passes over the shared-memory tiles in
-// one launch: pass 1 is race A, a strict-"<" scan of its own; the thread
-// then reads ring[ia] itself (one load from device memory); pass 2 is a
-// scan of races B (WITH_SAME, surf) and C by the masked value.  The distance is
-// computed twice per pair, so the kernel issues ~21-23 FP32 operations per
-// pair against the 13-15 the function needs (the bound in chip_smoke.py):
-// operations bound it, as for the split races.  What it saves is one launch
-// and the ring gather between A and B/C (2 or 3 launches become 1).  A
-// per-ring top-2 in one pass would reach the function's own count.
+// fused_races_kernel (every race of one search in one launch, no scratch,
+// no merge).  The TPU kernel holds the whole [tile_q, M] distance tile in
+// VMEM, takes A's argmin, extracts A's ring with a masked min (Mosaic has no
+// per-lane gather) and runs B and C on the same tile.  Here a thread cannot
+// hold a row of M distances, and B and C need A's ring before they can mask,
+// so the kernel makes two passes over the shared-memory tiles:
+// * G lanes of a warp share one query (G a template argument, picked by
+//   ops/races._fused_plan from B, Q and the SM count; 32 at B = 1): lane l
+//   scans the points j with j % G == l, so 1024 queries at B = 1 fill
+//   8 x G blocks instead of 8, and no merge launch is needed.  The lanes combine their
+//   (d, j) results by the lexicographic minimum with __shfl_xor_sync
+//   (lanes_min); it does not depend on the order of combination, so it
+//   gives the bits of one strict-"<" scan, by split.cuh's argument for
+//   chunks.  The G lanes of a query read G consecutive points of a shared
+//   tile (no bank conflict), and the other queries of the warp read the
+//   same ones (a broadcast).  Where the grid already fills the card
+//   (B = 512), G = 1 with 2 queries per thread;
+// * pass 1 is race A by group minima (race_group, one fminf per pair, the
+//   argmin found again in the lane's recorded group: group_argmin).  After
+//   the combine every lane of the query knows ia; one lane reads A's ring
+//   from the raw ring and mask (RING_INVALID where A is invalid) and a
+//   shuffle hands it on;
+// * pass 2 is race C (and B for surf) by group minima with the settled rule,
+//   one d and one rd = |ring - ring_a| per pair for both races (pair_group);
+// * the reference is read as the caller holds it and formed in the kernel
+//   (RawTile), the next tile's loads in flight while the current one is
+//   scanned.  The wrapper launches this kernel and nothing else.
+// The function needs 15 (surf) / 13 (corner) FP32 operations per pair
+// (chip_smoke.py); the two passes issue about 9 + 14 (surf) or 9 + 12
+// (corner), because d is computed in both.  A per-ring top 2 in one pass
+// would reach the function's own count but needs a bound on the ring count.
 
 #include "split.cuh"
 
@@ -180,16 +199,20 @@ __device__ __forceinline__ float race_value(const RaceQuery& w, float4 p, float 
   return ring_ok<K>(w, rg, j, span) ? d : BIG;
 }
 
-// The tile's points [s, s + n) (index base + k): each query's minimum over
-// them by fminf, one per pair, no index kept; the group is recorded where
-// that minimum is strictly below the running one.  fminf skips a NaN as the
-// strict "<" of a scan does, and "<" between groups keeps the earlier group
-// on a tie, so the recorded group holds the scan's (min, first argmin).
+// The tile's points s, s + G, ..., N of them (n when N == 0; index base + k):
+// each query's minimum over them by fminf, one per pair, no index kept; the
+// group is recorded (by its first index, base + s) where that minimum is
+// strictly below the running one.  fminf skips a NaN as the strict "<" of a
+// scan does, and "<" between groups keeps the earlier group on a tie, so the
+// recorded group holds the scan's (min, first argmin) over the points this
+// thread scans.  G = 1 in nn1_kernel / masked_kernel (a thread scans every
+// point of its chunk); G lanes of fused_races_kernel share one query and
+// each takes every G-th point.
 // SETTLED (ring races): every running minimum of the warp is already <= BIG,
 // so a candidate that fails its ring test (value BIG) cannot win, and the
 // rule "ring test passes, then fminf" gives the same minimum without forming
 // the masked value.
-template <RaceKind K, int QPT, int N, bool SETTLED>
+template <RaceKind K, int QPT, int N, bool SETTLED, int G>
 __device__ __forceinline__ void race_group(const RefTile& t, int s, int n, int base, float span,
                                            RaceQuery (&w)[QPT]) {
   float m[QPT];
@@ -197,7 +220,8 @@ __device__ __forceinline__ void race_group(const RefTile& t, int s, int n, int b
   for (int u = 0; u < QPT; ++u) m[u] = INFINITY;
   // N > 0: n == N, unrolled
 #pragma unroll
-  for (int k = s; k < s + (N > 0 ? N : n); ++k) {
+  for (int i = 0; i < (N > 0 ? N : n); ++i) {
+    const int k = s + i * G;
     const float4 p = t.p[k];
     const float rg = K == RACE_A ? 0.0f : t.ring[k];
 #pragma unroll
@@ -216,16 +240,75 @@ __device__ __forceinline__ void race_group(const RefTile& t, int s, int n, int b
   }
 }
 
-template <RaceKind K, int QPT, int N>
+// The settled rule's vote is taken over the whole warp: each lane's own
+// condition is its queries' minima <= BIG, and the warp-wide vote keeps the
+// branch uniform (a warp of G-lane groups settles when all its groups have).
+template <RaceKind K, int QPT, int N, int G = 1>
 __device__ __forceinline__ void race_step(const RefTile& t, int s, int n, int base, float span,
                                           RaceQuery (&w)[QPT]) {
   bool settled = K != RACE_A;
 #pragma unroll
   for (int u = 0; u < QPT; ++u) settled = settled && w[u].best <= BIG;
   if (K != RACE_A && __all_sync(0xffffffffu, settled)) {
-    race_group<K, QPT, N, true>(t, s, n, base, span, w);
+    race_group<K, QPT, N, true, G>(t, s, n, base, span, w);
   } else {
-    race_group<K, QPT, N, false>(t, s, n, base, span, w);
+    race_group<K, QPT, N, false, G>(t, s, n, base, span, w);
+  }
+}
+
+// Points of a group read from device memory at once, for all the queries of
+// a thread together (8 for one query, 4 each for two: more would hold ~40
+// registers per query through the rescan and spill where a thread has two).
+constexpr int RESCAN_BATCH = 8;
+
+// A thread's (min, first argmin) from its recorded group: the first point of
+// the group (g, g + G, ..., N points below c1) whose value, recomputed by the
+// same operations, equals the minimum.  A group lies in one tile.  In the
+// last tile staged (base `last`) it is read from shared memory; an earlier
+// one is read again from the caller's tensors, BATCH points' loads at a
+// time, so that they are in flight together and not one after another.
+// No group: (+inf, 0), as a scan from (+inf, 0) leaves it.
+template <RaceKind K, int G, int N, int BATCH>
+__device__ __forceinline__ void group_argmin(const RaceQuery& w, const RefTile& tile, int last,
+                                             const float* __restrict__ r,
+                                             const bool* __restrict__ mask,
+                                             const int* __restrict__ ring, int c1, float span,
+                                             float& bd, int& bi) {
+  bd = INFINITY;
+  bi = 0;
+  const int g = w.group;
+  if (g < 0) return;
+  const int e = min(g + N * G, c1);   // past the group's last point
+  if (g >= last) {
+    // backwards, so that the first match is the one kept; no early exit
+    for (int j = g + (e - 1 - g) / G * G; j >= g; j -= G) {
+      const float rg = K == RACE_A ? 0.0f : tile.ring[j - last];
+      const float v = race_value<K>(w, tile.p[j - last], rg, j, span);
+      if (v == w.best) { bd = v; bi = j; }
+    }
+    return;
+  }
+  bool found = false;
+  for (int j0 = g; j0 < e && !found; j0 += BATCH * G) {
+    float4 p[BATCH];
+    float rg[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int j = j0 + i * G;
+      if (j < e) {
+        p[i] = raw_point(r, mask, j);
+        rg[i] = K == RACE_A ? 0.0f : raw_ring(ring, mask, j);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int j = j0 + i * G;
+      if (!found && j < e && race_value<K>(w, p[i], rg[i], j, span) == w.best) {
+        found = true;
+        bd = w.best;
+        bi = j;
+      }
+    }
   }
 }
 
@@ -285,26 +368,14 @@ __device__ __forceinline__ void race_block(RefTile& tile, const float* __restric
     }
   }
 
-  // Each query's argmin: the first point of its recorded group whose value,
-  // recomputed by the same operations, equals the minimum.  The chunk's last
-  // tile is still in shared memory; an earlier group is read again from the
-  // caller's tensors.  No group: (+inf, 0), as a scan from (+inf, 0) leaves it.
+  // each query's argmin, found again in its recorded group
 #pragma unroll
   for (int u = 0; u < QPT; ++u) {
     const int qi = q0 + u * THREADS;
-    const int g = w[u].group;
-    const int e = g < 0 ? g : min(g + RACE_GROUP, c1);   // no group: no step
-    float bd = INFINITY;
-    int bi = 0;
-    // backwards, so that the first match is the one kept; no early exit
-    for (int j = e - 1; j >= g; --j) {
-      const bool staged = j >= last;
-      const float4 p = staged ? tile.p[j - last] : raw_point(r, mask, j);
-      const float rg = K == RACE_A ? 0.0f
-                                   : (staged ? tile.ring[j - last] : raw_ring(ring, mask, j));
-      const float v = race_value<K>(w[u], p, rg, j, span);
-      if (v == w[u].best) { bd = v; bi = j; }
-    }
+    float bd;
+    int bi;
+    group_argmin<K, 1, RACE_GROUP, RESCAN_BATCH / QPT>(w[u], tile, last, r, mask, ring, c1,
+                                                       span, bd, bi);
     if (qi < Q) {
       const long long o = blockIdx.z * chunk_stride + (long long)b * Q + qi;
       dst_d[o] = bd;
@@ -441,69 +512,300 @@ bc_races_kernel(const float* __restrict__ q, const float* __restrict__ ra,
   }
 }
 
-// Every race of one search.  WITH_SAME = surf (A, B, C), else corner (A, C).
-template <bool WITH_SAME>
-__global__ void __launch_bounds__(THREADS)
-fused_races_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                   const float* __restrict__ rn, const float* __restrict__ ring,
-                   float* __restrict__ out_da, int* __restrict__ out_ia,
-                   float* __restrict__ out_db, int* __restrict__ out_ib,
-                   float* __restrict__ out_dc, int* __restrict__ out_ic, int Q,
-                   int M, long long r_bstride, float span) {
-  __shared__ RefTile tile;
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = qi < Q;
-  const long long qo = (long long)b * Q + (live ? qi : 0);
-  const float qx = q[3 * qo], qy = q[3 * qo + 1], qz = q[3 * qo + 2];
-  const float qn = sq_norm(qx, qy, qz);
-  r += b * r_bstride * 3;
-  rn += b * r_bstride;
-  ring += b * r_bstride;
+// ---------------------------------------------------------------------------
+// fused_races_kernel: every race of one search in one launch
+// ---------------------------------------------------------------------------
 
-  // pass 1: race A
-  float best_a = INFINITY;
-  int idx_a = 0;
-  for (int base = 0; base < M; base += TILE_M) {
-    const int n = min(TILE_M, M - base);
-    __syncthreads();
-    load_tile<false>(tile, r, rn, nullptr, base, n);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float d = sq_dist(qx, qy, qz, qn, tile.p[k]);
-      if (d < best_a) { best_a = d; idx_a = base + k; }
-    }
-  }
-  const float ring_a = ring[idx_a];   // 1e9 where A is an invalid point
+// Points each lane of the fused kernel scans per group: its G lanes together
+// cover N * G consecutive points per step, a divisor of TILE_M, so that no
+// group straddles two tiles.
+template <int G>
+struct FusedGroup {
+  static constexpr int N = RACE_GROUP * G <= TILE_M ? RACE_GROUP : TILE_M / G;
+};
 
-  // pass 2: races B (surf only) and C on A's ring
-  float best_b = INFINITY, best_c = INFINITY;
-  int bidx_b = 0, bidx_c = 0;
-  for (int base = 0; base < M; base += TILE_M) {
-    const int n = min(TILE_M, M - base);
-    __syncthreads();
-    load_tile<true>(tile, r, rn, ring, base, n);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float d = sq_dist(qx, qy, qz, qn, tile.p[k]);
-      const float rg = tile.ring[k];
-      if (WITH_SAME) {
-        const float db = (rg == ring_a && base + k != idx_a) ? d : BIG;
-        if (db < best_b) { best_b = db; bidx_b = base + k; }
+template <int V>
+struct Int { static constexpr int value = V; };
+
+constexpr int TILE_PER_THREAD = TILE_M / THREADS;
+
+// One thread's share of a tile of the caller's tensors: fetched into
+// registers while the block scans the tile before it, then formed into the
+// shared tile as raw_point / raw_ring form a point.
+template <bool WITH_RING>
+struct RawTile {
+  float x[TILE_PER_THREAD], y[TILE_PER_THREAD], z[TILE_PER_THREAD];
+  int rg[TILE_PER_THREAD];
+  bool ok[TILE_PER_THREAD];
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ r,
+                                        const bool* __restrict__ mask,
+                                        const int* __restrict__ ring, int base, int n) {
+#pragma unroll
+    for (int p = 0; p < TILE_PER_THREAD; ++p) {
+      const int k = threadIdx.x + p * THREADS;
+      if (k < n) {
+        const int j = base + k;
+        x[p] = r[3 * j]; y[p] = r[3 * j + 1]; z[p] = r[3 * j + 2];
+        ok[p] = mask[j];
+        if (WITH_RING) rg[p] = ring[j];
       }
-      const float rd = fabsf(__fsub_rn(rg, ring_a));
-      const float dc = (rd > 0.0f && rd <= span) ? d : BIG;
-      if (dc < best_c) { best_c = dc; bidx_c = base + k; }
     }
   }
-  if (live) {
-    out_da[qo] = best_a; out_ia[qo] = idx_a;
-    if (WITH_SAME) { out_db[qo] = best_b; out_ib[qo] = bidx_b; }
-    out_dc[qo] = best_c; out_ic[qo] = bidx_c;
+
+  __device__ __forceinline__ void put(RefTile& t, int n) const {
+#pragma unroll
+    for (int p = 0; p < TILE_PER_THREAD; ++p) {
+      const int k = threadIdx.x + p * THREADS;
+      if (k < n) {
+        t.p[k] = make_float4(x[p], y[p], z[p], ok[p] ? sq_norm(x[p], y[p], z[p]) : BIG);
+        if (WITH_RING) t.ring[k] = ok[p] ? __int2float_rn(rg[p]) : RING_INVALID;
+      }
+    }
+  }
+};
+
+// Every tile of [0, M) in turn, the next tile's loads in flight while the
+// current one is scanned: scan(n, base) for each.  Returns the base of the
+// last tile, which stays in shared memory.
+template <bool WITH_RING, typename Scan>
+__device__ __forceinline__ int scan_tiles(RefTile& tile, const float* __restrict__ r,
+                                          const bool* __restrict__ mask,
+                                          const int* __restrict__ ring, int M, Scan scan) {
+  RawTile<WITH_RING> raw;
+  raw.fetch(r, mask, ring, 0, min(TILE_M, M));
+  for (int base = 0;; base += TILE_M) {
+    const int n = min(TILE_M, M - base);
+    __syncthreads();   // every thread is done with the tile before
+    raw.put(tile, n);
+    __syncthreads();
+    if (base + TILE_M >= M) {
+      scan(n, base);
+      return base;
+    }
+    raw.fetch(r, mask, ring, base + TILE_M, min(TILE_M, M - base - TILE_M));
+    scan(n, base);
   }
 }
 
-dim3 grid_for(int B, int Q) { return dim3((Q + THREADS - 1) / THREADS, B); }
+// The steps of one tile of n points for lane `lane` of a G-lane group:
+// step(s, count, Int<N>) on its points s, s + G, ... of each full step of
+// N * G points, then step(s, count, Int<0>) on what is left of a ragged
+// tile.  The loop bounds depend on n only, so every lane of a warp takes
+// each step (the settled rule's vote inside needs the whole warp).
+template <int G, int N, typename Step>
+__device__ __forceinline__ void lane_steps(int n, int lane, Step step) {
+  constexpr int SPAN = N * G;
+  int s = 0;
+  if (n == TILE_M) {
+#pragma unroll 1
+    for (; s < TILE_M; s += SPAN) step(s + lane, N, Int<N>());
+    return;
+  }
+  for (; s + SPAN <= n; s += SPAN) step(s + lane, N, Int<N>());
+  if (s < n) {
+    const int left = n - s - lane;
+    step(s + lane, left > 0 ? (left + G - 1) / G : 0, Int<0>());
+  }
+}
+
+// Surf races B ("same") and C ("adj") of the points s, s + G, ..., by group
+// minima as race_group: one d and one rd = |ring - ring_a| per pair feed
+// both ("same" is rd == 0, "adj" 0 < rd <= span, on finite rings).
+template <int QPT, int N, bool SETTLED, int G>
+__device__ __forceinline__ void pair_group(const RefTile& t, int s, int n, int base, float span,
+                                           RaceQuery (&wb)[QPT], RaceQuery (&wc)[QPT]) {
+  float mb[QPT], mc[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) { mb[u] = INFINITY; mc[u] = INFINITY; }
+#pragma unroll
+  for (int i = 0; i < (N > 0 ? N : n); ++i) {
+    const int k = s + i * G;
+    const float4 p = t.p[k];
+    const float rg = t.ring[k];
+    const int j = base + k;
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      const RaceQuery& w = wc[u];
+      const float d = sq_dist(w.qx, w.qy, w.qz, w.qn, p);
+      const float rd = fabsf(__fsub_rn(rg, w.ring_a));
+      const bool same = rd == 0.0f && j != w.idx_a;
+      const bool adj = rd > 0.0f && rd <= span;
+      if (SETTLED) {
+        if (same) mb[u] = fminf(mb[u], d);
+        if (adj) mc[u] = fminf(mc[u], d);
+      } else {
+        mb[u] = fminf(mb[u], same ? d : BIG);
+        mc[u] = fminf(mc[u], adj ? d : BIG);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    if (mb[u] < wb[u].best) { wb[u].best = mb[u]; wb[u].group = base + s; }
+    if (mc[u] < wc[u].best) { wc[u].best = mc[u]; wc[u].group = base + s; }
+  }
+}
+
+template <int QPT, int N, int G>
+__device__ __forceinline__ void pair_step(const RefTile& t, int s, int n, int base, float span,
+                                          RaceQuery (&wb)[QPT], RaceQuery (&wc)[QPT]) {
+  bool settled = true;
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) settled = settled && wb[u].best <= BIG && wc[u].best <= BIG;
+  if (__all_sync(0xffffffffu, settled)) {
+    pair_group<QPT, N, true, G>(t, s, n, base, span, wb, wc);
+  } else {
+    pair_group<QPT, N, false, G>(t, s, n, base, span, wb, wc);
+  }
+}
+
+// The lexicographic (d, j) minimum over the G lanes of a query (aligned
+// groups of G lanes of the warp), left in every lane of the group.  It does
+// not depend on the order of combination, so it is the minimum, and first
+// argmin, of one strict-"<" scan over the union of the lanes' points.
+template <int G>
+__device__ __forceinline__ void lanes_min(float& d, int& j) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off /= 2) {
+    const float od = __shfl_xor_sync(0xffffffffu, d, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, j, off);
+    if (od < d || (od == d && oj < j)) { d = od; j = oj; }
+  }
+}
+
+// Every race of one search.  WITH_SAME = surf (A, B, C), else corner (A, C).
+// Block (x, b): THREADS / G * QPT queries of problem b, each served by G
+// consecutive lanes; lane l of a query scans the points j with j % G == l.
+template <int G, int QPT, bool WITH_SAME>
+__global__ void __launch_bounds__(THREADS)
+fused_races_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                   const bool* __restrict__ mask, const int* __restrict__ ring,
+                   float* __restrict__ out_da, int* __restrict__ out_ia,
+                   float* __restrict__ out_db, int* __restrict__ out_ib,
+                   float* __restrict__ out_dc, int* __restrict__ out_ic, int Q, int M,
+                   long long r_bstride, float span) {
+  constexpr int N = FusedGroup<G>::N;
+  static_assert(32 % G == 0 && TILE_M % (N * G) == 0, "lane groups");
+  constexpr int QB = THREADS / G;   // queries of the block per query slot
+  __shared__ RefTile tile;
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * (QB * QPT) + threadIdx.x / G;
+  RaceQuery a[QPT], wb[QPT], wc[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int qi = q0 + u * QB;
+    const long long qo = (long long)b * Q + (qi < Q ? qi : 0);
+    a[u].qx = q[3 * qo]; a[u].qy = q[3 * qo + 1]; a[u].qz = q[3 * qo + 2];
+    a[u].qn = sq_norm(a[u].qx, a[u].qy, a[u].qz);
+    a[u].ring_a = 0.0f;
+    a[u].idx_a = 0;
+    a[u].best = INFINITY;
+    a[u].group = -1;
+  }
+  r += b * r_bstride * 3;
+  mask += b * r_bstride;
+  ring += b * r_bstride;
+
+  // pass 1: race A by group minima, each lane over its points.  Where M is
+  // one tile, its rings are staged with it and pass 2 scans it as it is.
+  const auto scan_a = [&](int n, int base) {
+    lane_steps<G, N>(n, lane, [&](int s, int cnt, auto len) {
+      race_step<RACE_A, QPT, decltype(len)::value, G>(tile, s, cnt, base, span, a);
+    });
+  };
+  const bool one_tile = M <= TILE_M;
+  int last = one_tile ? scan_tiles<true>(tile, r, mask, ring, M, scan_a)
+                      : scan_tiles<false>(tile, r, mask, ring, M, scan_a);
+  // A over the whole of M, in every lane of the query; one lane reads A's
+  // ring (RING_INVALID where A is an invalid point) and hands it on
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    float da;
+    int ia;
+    group_argmin<RACE_A, G, N, RESCAN_BATCH / QPT>(a[u], tile, last, r, mask, ring, M, span,
+                                                   da, ia);
+    lanes_min<G>(da, ia);
+    float ra = lane == 0 ? raw_ring(ring, mask, ia) : 0.0f;
+    ra = __shfl_sync(0xffffffffu, ra, 0, G);
+    wc[u] = a[u];
+    wc[u].ring_a = ra;
+    wc[u].idx_a = ia;
+    wc[u].best = INFINITY;
+    wc[u].group = -1;
+    wb[u] = wc[u];
+    a[u].best = da;
+    a[u].idx_a = ia;
+  }
+
+  // pass 2: race C, and B with WITH_SAME, on A's ring
+  const auto scan_bc = [&](int n, int base) {
+    lane_steps<G, N>(n, lane, [&](int s, int cnt, auto len) {
+      constexpr int L = decltype(len)::value;
+      if (WITH_SAME) {
+        pair_step<QPT, L, G>(tile, s, cnt, base, span, wb, wc);
+      } else {
+        race_step<RACE_ADJ, QPT, L, G>(tile, s, cnt, base, span, wc);
+      }
+    });
+  };
+  if (one_tile) {
+    scan_bc(M, 0);
+  } else {
+    last = scan_tiles<true>(tile, r, mask, ring, M, scan_bc);
+  }
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int qi = q0 + u * QB;
+    float dc, db = 0.0f;
+    int ic, ib = 0;
+    group_argmin<RACE_ADJ, G, N, RESCAN_BATCH / QPT>(wc[u], tile, last, r, mask, ring, M,
+                                                     span, dc, ic);
+    lanes_min<G>(dc, ic);
+    if (WITH_SAME) {
+      group_argmin<RACE_SAME, G, N, RESCAN_BATCH / QPT>(wb[u], tile, last, r, mask, ring, M,
+                                                        span, db, ib);
+      lanes_min<G>(db, ib);
+    }
+    if (lane == 0 && qi < Q) {
+      const long long qo = (long long)b * Q + qi;
+      out_da[qo] = a[u].best; out_ia[qo] = a[u].idx_a;
+      if (WITH_SAME) { out_db[qo] = db; out_ib[qo] = ib; }
+      out_dc[qo] = dc; out_ic[qo] = ic;
+    }
+  }
+}
+
+// The fused kernel's launches: G lanes per query, QPT queries per thread.
+template <int G, int QPT, bool WITH_SAME>
+int launch_fused(const float* q, const float* r, const bool* mask, const int* ring,
+                 float* out_da, int* out_ia, float* out_db, int* out_ib, float* out_dc,
+                 int* out_ic, int B, int Q, int M, int r_bstride, float span, cudaStream_t st) {
+  constexpr int per_block = THREADS / G * QPT;
+  const dim3 grid((Q + per_block - 1) / per_block, B);
+  fused_races_kernel<G, QPT, WITH_SAME><<<grid, THREADS, 0, st>>>(
+      q, r, mask, ring, out_da, out_ia, out_db, out_ib, out_dc, out_ic, Q, M, r_bstride, span);
+  return (int)cudaGetLastError();
+}
+
+// (G, QPT) -> its launch; cudaErrorInvalidValue for a plan not built.  The
+// two plans built are the ones that won at the search's shapes (PERF.md):
+// G = 1 with 2 queries per thread where the grid fills the card, G = 32 (a
+// warp per query) where it does not; G = 4, 8, 16 and G = 1 with one query
+// per thread were slower at every shape measured.
+template <bool WITH_SAME>
+int launch_fused_plan(int G, int QPT, const float* q, const float* r, const bool* mask,
+                      const int* ring, float* out_da, int* out_ia, float* out_db, int* out_ib,
+                      float* out_dc, int* out_ic, int B, int Q, int M, int r_bstride, float span,
+                      cudaStream_t st) {
+  decltype(&launch_fused<1, 2, WITH_SAME>) fn = nullptr;
+  if (G == 1 && QPT == 2) fn = launch_fused<1, 2, WITH_SAME>;
+  if (G == 32 && QPT == 1) fn = launch_fused<32, 1, WITH_SAME>;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, r, mask, ring, out_da, out_ia, out_db, out_ib, out_dc, out_ic, B, Q, M,
+            r_bstride, span, st);
+}
 
 // nn1_kernel / masked_kernel at QPT queries per thread over S chunks of M.
 template <int QPT>
@@ -518,8 +820,7 @@ int merge_one(const float* part_d, const int* part_i, float* out_d, int* out_i, 
   const int err = (int)cudaGetLastError();
   if (err) return err;
   MinOut out = {{out_d, nullptr, nullptr, nullptr}, {out_i, nullptr, nullptr, nullptr}};
-  merge_min<<<merge_grid(n, 1), SEARCH_THREADS, 0, st>>>(part_d, part_i, out, n, S);
-  return (int)cudaGetLastError();
+  return launch_merge_min(part_d, part_i, out, n, S, 1, st);
 }
 
 // nn1_masked's launches: whole (S = 1) or split with the merge.
@@ -608,26 +909,35 @@ int cooper_bc_races(const float* q, const float* ra, const int* ia,
   const int err = (int)cudaGetLastError();
   if (err) return err;
   MinOut out = {{out_db, out_dc, nullptr, nullptr}, {out_ib, out_ic, nullptr, nullptr}};
-  merge_min<<<merge_grid(n, 2), SEARCH_THREADS, 0, st>>>(part_d, part_i, out, n, S);
-  return (int)cudaGetLastError();
+  return launch_merge_min(part_d, part_i, out, n, S, 2, st);
 }
 
-// out_db / out_ib are unused (may be null) when with_same == 0.
-int cooper_fused_races(const float* q, const float* r, const float* rn,
-                       const float* ring, float* out_da, int* out_ia,
-                       float* out_db, int* out_ib, float* out_dc, int* out_ic,
-                       int B, int Q, int M, int r_bstride, int with_same,
-                       float span, void* stream) {
-  if (with_same) {
-    fused_races_kernel<true><<<grid_for(B, Q), THREADS, 0, (cudaStream_t)stream>>>(
-        q, r, rn, ring, out_da, out_ia, out_db, out_ib, out_dc, out_ic, Q, M,
-        r_bstride, span);
-  } else {
-    fused_races_kernel<false><<<grid_for(B, Q), THREADS, 0, (cudaStream_t)stream>>>(
-        q, r, rn, ring, out_da, out_ia, out_db, out_ib, out_dc, out_ic, Q, M,
-        r_bstride, span);
-  }
-  return (int)cudaGetLastError();
+// Threads per block of the fused kernel: a block serves THREADS / G * QPT
+// queries (ops/races._fused_plan).
+int cooper_fused_block_threads() { return THREADS; }
+
+// The fused search reads the reference as the caller holds it: r [*,M,3]
+// f32, mask [*,M] bool, ring [*,M] i32.  G lanes serve each query, QPT
+// queries per thread: (1, 2) or (32, 1); another plan returns
+// cudaErrorInvalidValue.  out_db / out_ib are unused (may be null) when
+// with_same == 0.
+int cooper_fused_races(const float* q, const float* r, const bool* mask, const int* ring,
+                       float* out_da, int* out_ia, float* out_db, int* out_ib, float* out_dc,
+                       int* out_ic, int B, int Q, int M, int r_bstride, int with_same,
+                       float span, int G, int QPT, void* stream) {
+  return (with_same ? launch_fused_plan<true> : launch_fused_plan<false>)(
+      G, QPT, q, r, mask, ring, out_da, out_ia, out_db, out_ib, out_dc, out_ic, B, Q, M,
+      r_bstride, span, (cudaStream_t)stream);
+}
+
+// merge_min on its own: part_d / part_i [searches, S, n] -> out_d / out_i
+// [searches, n], 1 <= searches <= 4.
+int cooper_merge_min(const float* part_d, const int* part_i, float* out_d, int* out_i,
+                     long long n, int S, int searches, void* stream) {
+  if (searches < 1 || searches > 4 || S < 1) return (int)cudaErrorInvalidValue;
+  MinOut out = {{out_d, out_d + n, out_d + 2 * n, out_d + 3 * n},
+                {out_i, out_i + n, out_i + 2 * n, out_i + 3 * n}};
+  return launch_merge_min(part_d, part_i, out, n, S, searches, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,13 +9,17 @@
 // index ranges is the merge of the per-range results, taken in (d, j) order.
 // So block z scans the chunk [z*L, min(M, (z+1)*L)) and writes its result to
 // a scratch buffer [S, n] (or [S, n, K]), and a second kernel merges the S
-// results of each query in chunk order with the same strict "<" that the
-// scan uses.  Chunks come in increasing index order and each chunk's list is
-// ascending in (d, j), so every candidate the merge meets has a larger index
-// than any listed entry of equal distance: "<" then keeps the smaller index,
-// exactly as one scan over all of M does.  A NaN distance never enters
-// (a NaN compare is false), in the scan as in the merge.  Nothing depends on
-// the order in which blocks finish.
+// results of each query.  merge_first_k takes the chunks in order with the
+// scan's strict "<": chunks come in increasing index order and each chunk's
+// list is ascending in (d, j), so every candidate the merge meets has a
+// larger index than any listed entry of equal distance, and "<" keeps the
+// smaller index, exactly as one scan over all of M does.  merge_min needs no
+// order at all: it takes the lexicographic (d, z) minimum of the S pairs,
+// with the scan's start (+inf, 0) as a chunk z = -1, and every chunk's index
+// lies above every earlier chunk's, so a tie in d goes to the smaller index
+// as in the chunk-order merge (and one scan), whatever the grouping.  A NaN
+// distance never enters (a NaN compare is false), in the scan as in the
+// merges.  Nothing depends on the order in which blocks finish.
 
 #pragma once
 
@@ -102,22 +106,57 @@ struct MinOut {
   int* i[4];
 };
 
-// Merge S (min, argmin) pairs per query, [searches, S, n] -> out[search] [n]:
-// chunks in order, strict "<", from (+inf, 0) as the scan starts.
-__global__ void __launch_bounds__(SEARCH_THREADS)
+// Merge S (min, argmin) pairs per query, [searches, S, n] -> out[search] [n],
+// to what the chunk-order merge with strict "<" from (+inf, 0) gives.  A
+// block serves QB consecutive queries with WARPS warps: lane l of a warp
+// takes query l % QB, so the lanes of one chunk read QB consecutive values
+// (QB = 8: one 32-byte sector), and each of the W = WARPS * 32 / QB threads
+// of a query takes every W-th chunk, with its loads in flight together.
+// Each thread keeps the first (d, z) minimum of its chunks; the threads of a
+// query then combine by the lexicographic (d, z) minimum, by shuffles inside
+// the warp and through shared memory across warps.  No chain of S dependent
+// steps: ceil(S / W) loads per thread, then log2(32 / QB) shuffles.
+template <int QB, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 merge_min(const float* __restrict__ pd, const int* __restrict__ pi, MinOut out,
           long long n, int S) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
+  constexpr int PER_WARP = 32 / QB;          // threads of one query in a warp
+  constexpr int W = PER_WARP * WARPS;        // threads of one query
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long t = (long long)blockIdx.x * QB + lane % QB;
   const long long o = (long long)blockIdx.y * S * n + t;
   float best = INFINITY;
-  int bidx = 0;
-#pragma unroll 8
-  for (int z = 0; z < S; ++z) {
-    const float d = pd[o + (long long)z * n];
-    const int j = pi[o + (long long)z * n];
-    if (d < best) { best = d; bidx = j; }
+  int bz = -1, bidx = 0;                     // the scan's start, before chunk 0
+  if (t < n) {
+#pragma unroll 4
+    for (int z = warp * PER_WARP + lane / QB; z < S; z += W) {
+      const float d = pd[o + (long long)z * n];
+      const int j = pi[o + (long long)z * n];
+      if (d < best) { best = d; bz = z; bidx = j; }   // z ascends: a tie keeps the first
+    }
   }
+#pragma unroll
+  for (int off = QB; off < 32; off *= 2) {
+    const float od = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oz = __shfl_xor_sync(0xffffffffu, bz, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+    if (od < best || (od == best && oz < bz)) { best = od; bz = oz; bidx = oi; }
+  }
+  if (WARPS > 1) {
+    __shared__ float sd[WARPS][QB];
+    __shared__ int sz[WARPS][QB], si[WARPS][QB];
+    if (lane < QB) { sd[warp][lane] = best; sz[warp][lane] = bz; si[warp][lane] = bidx; }
+    __syncthreads();
+    if (warp == 0 && lane < QB) {
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) {
+        const float od = sd[w][lane];
+        const int oz = sz[w][lane];
+        if (od < best || (od == best && oz < bz)) { best = od; bz = oz; bidx = si[w][lane]; }
+      }
+    }
+  }
+  if (warp != 0 || lane >= QB || t >= n) return;
   // the search's outputs, picked with constant indices (a dynamic index
   // into the kernel's parameters would copy them to local memory)
   float* od = out.d[0];
@@ -128,6 +167,20 @@ merge_min(const float* __restrict__ pd, const int* __restrict__ pi, MinOut out,
   }
   od[t] = best;
   oi[t] = bidx;
+}
+
+// The merge's shape: 8 queries per block (a full 32-byte sector per load), 16
+// threads per query in 4 warps.  8 x 16 beat 32 x 4 (a warp per chunk
+// stride) and a warp per query at S = 32-66 (time_search_kernels.py, PERF.md).
+constexpr int MERGE_QB = 8, MERGE_WARPS = 4;
+
+// Launch merge_min for `searches` searches; returns the launch's
+// cudaGetLastError() code.
+inline int launch_merge_min(const float* pd, const int* pi, MinOut out, long long n, int S,
+                            int searches, cudaStream_t st) {
+  const dim3 grid((unsigned)((n + MERGE_QB - 1) / MERGE_QB), searches);
+  merge_min<MERGE_QB, MERGE_WARPS><<<grid, 32 * MERGE_WARPS, 0, st>>>(pd, pi, out, n, S);
+  return (int)cudaGetLastError();
 }
 
 inline dim3 merge_grid(long long n, int searches) {

@@ -25,16 +25,19 @@ ring ``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``).  Outputs are
 Dispatch follows the device: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel (``csrc/races.cu``) or raises.  Where the query
 blocks of an ``nn1``, ``nn1_masked`` or ``bc_races`` call would not give
-every SM of the card one, the kernel splits M across blocks and merges their
-results (``_split_plan``, ``csrc/split.cuh``): the same bits as one scan
-over M.  The ``nn1`` and ``nn1_masked`` kernels read the mask and the int32
-rings as they are and form ``|r|^2``, ``BIG`` and the f32 rings themselves,
-so those two wrappers launch their kernel (and the merge) and nothing
-else.  An invalid
-reference point carries ``|r|^2 = BIG`` and ring ``1e9``; a candidate that
-fails a ring test has distance exactly ``BIG``.  Ties go to the smaller
-index.  Kernel and plain version evaluate the distance with the same f32
-operations in the same order, so they agree bit for bit.
+every SM of the card one, the kernel splits M across blocks and
+``merge_min`` joins their results (``_split_plan``, ``csrc/split.cuh``):
+the same bits as one scan over M.  The fused kernel never splits M: where
+its query blocks would not fill the card, G lanes of a warp share each
+query, each scanning every G-th point, and combine by shuffles
+(``_fused_plan``).  The ``nn1``, ``nn1_masked`` and ``fused_races`` kernels
+read the mask and the int32 rings as they are and form ``|r|^2``, ``BIG``
+and the f32 rings themselves, so those wrappers launch their kernel (and,
+for the first two, the merge) and nothing else.  An invalid reference point
+carries ``|r|^2 = BIG`` and ring ``1e9``; a candidate that fails a ring
+test has distance exactly ``BIG``.  Ties go to the smaller index.  Kernel
+and plain version evaluate the distance with the same f32 operations in the
+same order, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -57,6 +60,15 @@ _PLAIN_CHUNK_ELEMS = 1 << 26
 SPLIT_BLOCKS_PER_SM = 4
 SPLIT_MIN_CHUNK = 64
 
+# The fused kernel's plans (G lanes per query, QPT queries per thread) that
+# csrc/races.cu builds, and its threads per block.  _fused_plan takes G = 1,
+# 2 queries per thread, where those blocks give every SM FUSED_BLOCKS_PER_SM;
+# else a warp per query, G = 32 (the other G and G = 1 with one query per
+# thread lost at every shape measured: PERF.md).
+FUSED_PLANS = ((1, 2), (32, 1))
+FUSED_THREADS = 128
+FUSED_BLOCKS_PER_SM = 2
+
 
 def _split_plan(B, Q, M, n_sm, block_queries):
     """(S, L): the chunks of M a search kernel's blocks scan.  Block z scans
@@ -69,6 +81,14 @@ def _split_plan(B, Q, M, n_sm, block_queries):
     S = max(1, min(-(-SPLIT_BLOCKS_PER_SM * n_sm // blocks), -(-M // SPLIT_MIN_CHUNK)))
     L = -(-M // S)
     return -(-M // L), L
+
+
+def _fused_plan(B, Q, n_sm):
+    """(G, QPT): the lanes per query and queries per thread of a fused
+    search of B problems of Q queries on a card of ``n_sm`` SMs."""
+    if B * -(-Q // (FUSED_THREADS * 2)) >= FUSED_BLOCKS_PER_SM * n_sm:
+        return 1, 2
+    return 32, 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,12 +152,11 @@ def _ref_rings(r_ring, r_mask):
                        torch.full_like(r_mask, RING_INVALID, dtype=torch.float32))
 
 
-def _fused_inputs(q, r_xyz, r_ring, r_mask):
-    """Validate the fused search's inputs and derive what both paths read:
-    (B, Q, M, shared, |r|^2 [*, M], ring [*, M] f32)."""
+def _check_fused(q, r_xyz, r_ring, r_mask):
+    """Validate the fused search's inputs; returns (B, Q, M, shared_reference)."""
     B, Q, M, shared = _check_race(q, r_xyz, r_mask)
     _check("r_ring", r_ring, torch.int32, tuple(r_mask.shape), q.device)
-    return B, Q, M, shared, _ref_norms(r_xyz, r_mask), _ref_rings(r_ring, r_mask)
+    return B, Q, M, shared
 
 
 def _check_ring_race(q, ring_a, ia, r_xyz, r_ring, r_mask, mode):
@@ -256,7 +275,8 @@ def fused_races_plain(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: floa
     ``with_same`` (surf), else (ia, da, ic, dc) (corner), each [B, Q].
     A's ring is read from the f32 ring array, so it is RING_INVALID where
     A is an invalid point."""
-    B, Q, M, shared, rn, ring = _fused_inputs(q, r_xyz, r_ring, r_mask)
+    B, Q, M, shared = _check_fused(q, r_xyz, r_ring, r_mask)
+    rn, ring = _ref_norms(r_xyz, r_mask), _ref_rings(r_ring, r_mask)
     n_out = 6 if with_same else 4
     outs = [[] for _ in range(n_out)]
     for s, e in _batch_chunks(B, Q, M):
@@ -273,6 +293,17 @@ def fused_races_plain(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: floa
         for k, r in enumerate(res):
             outs[k].append(r)
     return tuple(torch.cat(o) for o in outs)
+
+
+def merge_min_plain(part_d, part_i):
+    """The chunks' (min, argmin) pairs [..., S, n] merged in chunk order with
+    a strict "<" from (+inf, 0), plain PyTorch: (idx, dist) [..., n].  The
+    first chunk holding the minimum wins a tie; nothing below +inf: (+inf, 0)."""
+    d = torch.where(torch.isnan(part_d), torch.inf, part_d)
+    z = torch.argmin(d, dim=-2, keepdim=True)
+    best = torch.gather(d, -2, z)[..., 0, :]
+    idx = torch.gather(part_i, -2, z)[..., 0, :]
+    return torch.where(best < torch.inf, idx, 0), best
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +348,7 @@ def _nn1_cuda(q, r_xyz, r_mask, plan=None):
             _ptr(part_d), _ptr(part_i), B, Q, M, 0 if shared else M, S, L)
     nn1.launches += 1
     nn1.merges += S > 1
+    merge_min.launches += S > 1
     return i, d
 
 
@@ -345,6 +377,7 @@ def _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span=2.5, 
             S, L)
     nn1_masked.launches += 1
     nn1_masked.merges += S > 1
+    merge_min.launches += S > 1
     return i, d
 
 
@@ -386,6 +419,7 @@ def _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span=2.5, plan=Non
             0 if shared else M, float(ring_span), S, L)
     bc_races.launches += 1
     bc_races.merges += S > 1
+    merge_min.launches += S > 1
     return ib, db, ic, dc
 
 
@@ -403,20 +437,56 @@ def fused_races(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.
     ``with_same``, else (ia, da, ic, dc), each [B, Q]."""
     if not _require_device(q):
         return fused_races_plain(q, r_xyz, r_ring, r_mask, with_same, ring_span)
+    return _fused_races_cuda(q, r_xyz, r_ring, r_mask, with_same, ring_span)
+
+
+def _fused_races_cuda(q, r_xyz, r_ring, r_mask, with_same, ring_span=2.5, plan=None):
+    """The fused kernel on CUDA tensors: validation, the outputs and one
+    launch.  ``plan`` = (G, QPT) overrides ``_fused_plan`` (the card tests
+    run every plan in ``FUSED_PLANS`` with it)."""
     from ..build import library
 
-    B, Q, M, shared, rn, ring = _fused_inputs(q, r_xyz, r_ring, r_mask)
+    B, Q, M, shared = _check_fused(q, r_xyz, r_ring, r_mask)
+    G, qpt = plan or _fused_plan(B, Q, sm_count(q.device))
+    if (G, qpt) not in FUSED_PLANS:
+        raise ValueError(f"fused plan G={G}, QPT={qpt} is not built; one of {FUSED_PLANS}")
     idx = lambda: torch.empty((B, Q), dtype=torch.int32, device=q.device)
     dist = lambda: torch.empty((B, Q), dtype=torch.float32, device=q.device)
     ia, da, ic, dc = idx(), dist(), idx(), dist()
     ib, db = (idx(), dist()) if with_same else (None, None)
     _launch("fused_races", q, library().cooper_fused_races,
-            q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), ring.data_ptr(),
-            da.data_ptr(), ia.data_ptr(), db.data_ptr() if with_same else None,
-            ib.data_ptr() if with_same else None, dc.data_ptr(), ic.data_ptr(),
-            B, Q, M, 0 if shared else M, int(with_same), float(ring_span))
+            q.data_ptr(), r_xyz.data_ptr(), r_mask.data_ptr(), r_ring.data_ptr(),
+            da.data_ptr(), ia.data_ptr(), _ptr(db), _ptr(ib), dc.data_ptr(), ic.data_ptr(),
+            B, Q, M, 0 if shared else M, int(with_same), float(ring_span), G, qpt)
     fused_races.launches += 1
     return (ia, da, ib, db, ic, dc) if with_same else (ia, da, ic, dc)
+
+
+def merge_min(part_d, part_i):
+    """The chunk-order merge of S (min, argmin) pairs per query: part_d f32
+    and part_i int32 [searches, S, n] (up to 4 searches) -> (idx, dist)
+    [searches, n].  The race wrappers launch it inside their own call where
+    they split M (and count it here); this entry serves tests and timing."""
+    if not _require_device(part_d):
+        return merge_min_plain(part_d, part_i)
+    return _merge_min_cuda(part_d, part_i)
+
+
+def _merge_min_cuda(part_d, part_i):
+    """merge_min on CUDA tensors."""
+    from ..build import library
+
+    if part_d.dim() != 3 or not 1 <= part_d.shape[0] <= 4 or part_d.shape[1] < 1:
+        raise ValueError(f"partials must be [searches <= 4, S, n], got {tuple(part_d.shape)}")
+    _check("part_d", part_d, torch.float32, part_d.shape, part_d.device)
+    _check("part_i", part_i, torch.int32, part_d.shape, part_d.device)
+    searches, S, n = part_d.shape
+    d = torch.empty((searches, n), dtype=torch.float32, device=part_d.device)
+    i = torch.empty((searches, n), dtype=torch.int32, device=part_d.device)
+    _launch("merge_min", part_d, library().cooper_merge_min, part_d.data_ptr(),
+            part_i.data_ptr(), d.data_ptr(), i.data_ptr(), n, S, searches)
+    merge_min.launches += 1
+    return i, d
 
 
 # merges: the calls that split M and so launched the merge (merge_min) too
@@ -427,4 +497,6 @@ nn1_masked.merges = 0
 bc_races.launches = 0
 bc_races.merges = 0
 fused_races.launches = 0
+# merge_min's launches: those inside the split races' calls and its own
+merge_min.launches = 0
 KERNELS = (nn1, nn1_masked, bc_races, fused_races)

@@ -164,3 +164,135 @@ def test_dispatch_gate(monkeypatch, fused_env, Q, M, routed):
         for g, w in zip(got[:-1], want[:-1]):
             np.testing.assert_array_equal(g.numpy()[0][ok], np.asarray(w)[ok])
 
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's partition (csrc/races.cu fused_races_kernel) in numpy
+# ---------------------------------------------------------------------------
+
+TILE_M, RACE_GROUP = 512, 32     # csrc/races.cu
+H100_SMS = 132
+
+
+def _lane_group(G):
+    """Points per lane per group: the G lanes cover a divisor of TILE_M."""
+    return RACE_GROUP if RACE_GROUP * G <= TILE_M else TILE_M // G
+
+
+def _scan(v):
+    """One strict-"<" scan in index order from (+inf, 0) over v [Q, M]:
+    (first argmin, min); a NaN never enters."""
+    w = np.where(np.isnan(v), np.inf, v)
+    m = w.min(-1)
+    i = np.argmax(w == m[:, None], -1)
+    return np.where(m < np.inf, i, 0), m
+
+
+def _lane_race(v, G):
+    """The kernel's race over values v [Q, M] (f32): lane l of G scans the
+    points j % G == l in groups of _lane_group(G) in its own order (fminf
+    minimum per group, a group recorded where it is strictly below the
+    running minimum, then the first point of the recorded group equal to
+    it), and the lanes combine by the lexicographic (d, j) minimum."""
+    Q, M = v.shape
+    N = _lane_group(G)
+    best, bi = np.full(Q, np.inf, np.float32), np.zeros(Q, np.int64)
+    rows = np.arange(Q)
+    for lane in range(G):
+        cols = np.arange(lane, M, G)
+        lv = v[:, cols]
+        run, grp = np.full(Q, np.inf, np.float32), np.full(Q, -1)
+        for g0 in range(0, len(cols), N):
+            m = np.fmin.reduce(lv[:, g0:g0 + N], axis=1, initial=np.inf)
+            take = m < run
+            run[take], grp[take] = m[take], g0
+        ld, lj = np.full(Q, np.inf, np.float32), np.zeros(Q, np.int64)
+        for qi in rows[grp >= 0]:
+            seg = lv[qi, grp[qi]:grp[qi] + N]
+            ld[qi], lj[qi] = run[qi], cols[grp[qi] + int(np.argmax(seg == run[qi]))]
+        take = (ld < best) | ((ld == best) & (lj < bi))
+        best[take], bi[take] = ld[take], lj[take]
+    return bi, best
+
+
+def _fused_model(q, xyz, ring, mask, with_same, race):
+    """Every race of one search (B = 1, shared reference) with ``race``
+    (_scan or a G-lane _lane_race): (ia, da, ib, db, ic, dc) or (ia, da, ic,
+    dc) as numpy arrays."""
+    d = races.pairwise_sq_dist(_t(q[None]), _t(xyz), races._ref_norms(_t(xyz), _t(mask)))
+    d = d.numpy()[0]
+    ringf = races._ref_rings(_t(ring), _t(mask)).numpy()
+    ia, da = race(d)
+    ra = ringf[ia][:, None]
+    cols = np.arange(len(xyz))
+    out = [ia, da]
+    if with_same:
+        out += race(np.where((ringf == ra) & (cols != ia[:, None]), d, np.float32(races.BIG)))
+    rd = np.abs(ringf - ra)
+    out += race(np.where((rd > 0) & (rd <= SPAN), d, np.float32(races.BIG)))
+    return out
+
+
+def _partition_case(case):
+    """(q, xyz, ring, mask) for the partition test: integer-grid points
+    (heavy ties) with duplicates across lanes and tiles, NaN queries, FAR
+    queries whose A is an invalid point, an all-invalid reference, M < G."""
+    rng = np.random.RandomState({"ties": 31, "far": 32, "all-invalid": 33, "tiny": 34}[case])
+    M = 5 if case == "tiny" else 1100          # 1100: two full tiles and a ragged one
+    q = rng.randint(-3, 4, (40, 3)).astype(np.float32)
+    xyz = rng.randint(-3, 4, (M, 3)).astype(np.float32)
+    ring = rng.randint(0, 4, M).astype(np.int32)
+    mask = rng.rand(M) > 0.1
+    q[[3, 17]] = np.nan
+    if M > 1000:
+        xyz[600:640] = xyz[5]                  # one point on every lane, in three tiles
+        xyz[1090:] = xyz[5]
+    if case == "far":
+        mask = rng.rand(M) > 0.5
+        xyz[~mask] = 1e6
+        q[:8] = 1e6
+    if case == "all-invalid":
+        mask[:] = False
+    return q, xyz, ring, mask
+
+
+@pytest.mark.parametrize("with_same", [True, False], ids=["surf", "corner"])
+@pytest.mark.parametrize("case", ["ties", "far", "all-invalid", "tiny"])
+@pytest.mark.parametrize("G", [1, 4, 32])
+def test_lane_partition_equals_one_scan(G, case, with_same):
+    # G lanes per query, each over its strided subset of every tile by group
+    # minima, combined by the lexicographic (d, j) minimum: the bits of one
+    # strict-"<" scan on every query, and of fused_races_plain on every
+    # query that is not NaN (on a NaN query torch.argmin takes the NaN)
+    q, xyz, ring, mask = _partition_case(case)
+    got = _fused_model(q, xyz, ring, mask, with_same, lambda v: _lane_race(v, G))
+    scan = _fused_model(q, xyz, ring, mask, with_same, _scan)
+    plain = [t.numpy()[0] for t in races.fused_races_plain(
+        _t(q[None]), _t(xyz), _t(ring), _t(mask), with_same, SPAN)]
+    for g, s in zip(got, scan):
+        np.testing.assert_array_equal(g, s)
+    finite = ~np.isnan(q).any(-1)
+    for g, p in zip(got, plain):
+        np.testing.assert_array_equal(g[finite], p[finite])
+    nan = ~finite
+    assert (got[0][nan] == 0).all() and np.isinf(got[1][nan]).all()
+    if case == "far":
+        assert (~mask[got[0][finite]]).any()  # some A is an invalid point
+
+
+@pytest.mark.parametrize("B,Q,plan", [
+    (512, 768, (1, 2)),      # odometry batch surf: 1536 blocks at G = 1
+    (512, 256, (1, 2)),      # odometry batch corner: 512 blocks
+    (1, 1024, (32, 1)),      # single-stream surf: 4 blocks at G = 1
+    (1, 256, (32, 1)),       # single-stream corner: 1 block at G = 1
+    (1, 1, (32, 1)),
+    (264, 256, (1, 2)),      # exactly 2 blocks per SM at G = 1
+    (263, 256, (32, 1)),     # one block short
+])
+def test_fused_plan_at_the_fused_shapes(B, Q, plan):
+    # G = 1 (2 queries per thread) exactly where its blocks give every SM
+    # FUSED_BLOCKS_PER_SM, else a warp per query
+    assert races._fused_plan(B, Q, H100_SMS) == plan
+    assert plan in races.FUSED_PLANS
+    fills = B * -(-Q // (races.FUSED_THREADS * 2)) >= races.FUSED_BLOCKS_PER_SM * H100_SMS
+    assert (plan == (1, 2)) == fills

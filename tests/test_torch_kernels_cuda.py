@@ -428,3 +428,167 @@ def test_knn_on_a_spatially_sorted_reference(cuda, k, B, Q, M):
     got = knn.knn(q, xyz, mask, k)
     want = knn.knn_plain(q, xyz, mask, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel's plans (G lanes per query) and merge_min
+# ---------------------------------------------------------------------------
+
+
+def _fused_case(seed, B, Q, M, per_problem, device):
+    """Integer-grid points (heavy ties) with duplicates across lanes and
+    tiles, 10% invalid points, a NaN query and FAR queries whose nearest
+    point is an invalid one (invalid points parked at 1e6, as the port
+    parks them)."""
+    rng = np.random.RandomState(seed)
+    lead = (B,) if per_problem else ()
+    q = rng.randint(-3, 4, (B, Q, 3)).astype(np.float32)
+    xyz = rng.randint(-3, 4, lead + (M, 3)).astype(np.float32)
+    if M > 700:
+        xyz[..., 600:640, :] = xyz[..., 5:6, :]
+    ring = rng.randint(0, 4, lead + (M,)).astype(np.int32)
+    mask = rng.rand(*(lead + (M,))) > 0.1
+    xyz[~mask] = 1e6
+    if Q > 2:
+        q[:, 1] = 1e6
+        q[:, 2] = np.nan
+    return tuple(torch.from_numpy(a).to(device) for a in (q, xyz, ring, mask))
+
+
+def _nan_rows_as_a_scan(got, q, ring, mask, with_same):
+    """On a NaN query the kernel is a strict-"<" scan that nothing enters but
+    the BIG of a failed ring test: A (+inf, 0); B / C the first candidate
+    that fails its ring test at BIG, else (+inf, 0).  Checks that and
+    returns the finite rows."""
+    nan = torch.isnan(q).any(-1)
+    ringf = torch.where(mask, ring.float(), torch.tensor(races.RING_INVALID, device=q.device))
+    for b, qi in nan.nonzero().tolist():
+        rf = ringf if ringf.dim() == 1 else ringf[b]
+        assert (float(got[1][b, qi]), int(got[0][b, qi])) == (float("inf"), 0)
+        rd = (rf - rf[0]).abs()
+        cols = torch.arange(rf.numel(), device=q.device)
+        oks = ([(rd == 0) & (cols != 0)] if with_same else []) + [(rd > 0) & (rd <= SPAN)]
+        for k, ok in enumerate(oks, 1):
+            fails = (~ok).nonzero()
+            want = (float(np.float32(races.BIG)), int(fails[0])) if len(fails) else (
+                float("inf"), 0)
+            assert (float(got[2 * k + 1][b, qi]), int(got[2 * k][b, qi])) == want
+    return ~nan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("Q", [1, 128, 1024])
+@pytest.mark.parametrize("M", [1, 127, 2048, 8191, 8192])
+@pytest.mark.parametrize("plan", races.FUSED_PLANS, ids=lambda p: f"G{p[0]}x{p[1]}")
+def test_fused_kernel_at_every_plan_equals_plain(cuda, plan, M, Q, per_problem):
+    # every plan the launcher can pick, forced: bit for bit against the
+    # plain version on every finite query, the scan's answer on a NaN one
+    q, xyz, ring, mask = _fused_case(18, 2, Q, M, per_problem, cuda)
+    for with_same in (True, False):
+        before = races.fused_races.launches
+        got = races._fused_races_cuda(q, xyz, ring, mask, with_same, SPAN, plan=plan)
+        want = races.fused_races_plain(q, xyz, ring, mask, with_same, SPAN)
+        torch.cuda.synchronize()
+        assert races.fused_races.launches == before + 1
+        keep = _nan_rows_as_a_scan(got, q, ring, mask, with_same)
+        for a, b in zip(got, want):
+            assert torch.equal(a[keep], b[keep])
+        if Q > 2:
+            # the FAR query's A is an invalid point, where the reference has one
+            valid_a = take_ref(mask, got[0], not per_problem)[:, 1]
+            assert not bool(valid_a[(~mask).any(-1).expand(2)].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("plan", races.FUSED_PLANS, ids=lambda p: f"G{p[0]}x{p[1]}")
+def test_fused_kernel_on_an_all_invalid_reference(cuda, plan, per_problem):
+    # |r|^2 = BIG and the ring 1e9 formed in the kernel: every distance
+    # rounds to BIG (|q|, |r| <= 14 m), so A is the first point, A's ring
+    # 1e9 matches every point's, and C fails everywhere: (BIG, 0)
+    q, xyz, ring, mask = _problem(19, 2, 300, 1000, per_problem, cuda)
+    mask = torch.zeros_like(mask)
+    for with_same in (True, False):
+        got = races._fused_races_cuda(q, xyz, ring, mask, with_same, SPAN, plan=plan)
+        want = races.fused_races_plain(q, xyz, ring, mask, with_same, SPAN)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert (got[0] == 0).all() and (got[-2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,M", [(1, 1024, 8192), (1, 256, 2048), (512, 768, 3840),
+                                   (512, 256, 256)])
+def test_fused_races_launches_one_kernel(cuda, B, Q, M):
+    # the wrapper validates, allocates and launches the kernel: nothing else
+    # runs on the card (the profiler counts every kernel of the calls)
+    q, xyz, ring, mask = _problem(20, B, Q, M, False, cuda)
+    for with_same in (True, False):
+        races.fused_races(q, xyz, ring, mask, with_same, SPAN)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                races.fused_races(q, xyz, ring, mask, with_same, SPAN)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 3 and all("fused_races_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_fused_plan_unit_matches_the_library(cuda):
+    lib = __import__("cooper_mapper_torch.build", fromlist=["library"]).library()
+    assert lib.cooper_fused_block_threads() == races.FUSED_THREADS
+    q, xyz, ring, mask = _problem(21, 1, 128, 256, False, cuda)
+    with pytest.raises(ValueError):
+        races._fused_races_cuda(q, xyz, ring, mask, True, SPAN, plan=(2, 1))
+
+
+def _merge_partials(searches, S, n, L, device, seed=0):
+    """S chunks' (min, argmin) pairs per query and search, as a split race
+    writes them: integer distances (ties across chunks), BIG, and (+inf, 0)
+    where a chunk had no candidate."""
+    rng = np.random.RandomState(seed + S)
+    d = rng.randint(0, 4, (searches, S, n)).astype(np.float32)
+    d[rng.rand(searches, S, n) < 0.2] = races.BIG
+    i = (np.arange(S)[None, :, None] * L + rng.randint(0, L, (searches, S, n))).astype(np.int32)
+    none = rng.rand(searches, S, n) < 0.3
+    d[none], i[none] = np.inf, 0
+    return torch.from_numpy(d).to(device), torch.from_numpy(i).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 3, 31, 32, 33, 66, 130])
+def test_merge_min_equals_the_one_scan(cuda, S):
+    # up to four searches in one launch, ragged n, ties across
+    # chunks: the chunk-order merge's bits (merge_min_plain, held to the
+    # sequential merge on the CPU by tests/test_torch_races.py)
+    for searches, n in ((1, 1024), (2, 1000), (4, 37)):
+        pd, pi = _merge_partials(searches, S, n, 64, cuda)
+        before = races.merge_min.launches
+        got = races._merge_min_cuda(pd, pi)
+        torch.cuda.synchronize()
+        assert races.merge_min.launches == before + 1
+        want = races.merge_min_plain(pd, pi)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("race", ["nn1", "adj", "same", "bc"])
+def test_merge_min_counts_the_split_races_merges(cuda, race):
+    # a split race launches merge_min once per call (bc_races: both searches
+    # in one launch); an unsplit one does not
+    q, xyz, ring, mask = _problem(22, 1, 300, 2000, False, cuda)
+    ia, _ = races.nn1_plain(q, xyz, mask)
+    ring_a = take_ref(ring, ia, True)
+    for S in (1, 9):
+        before = races.merge_min.launches
+        if race == "nn1":
+            races._nn1_cuda(q, xyz, mask, plan=_plan(2000, S))
+        elif race == "bc":
+            races._bc_races_cuda(q, ring_a, ia, xyz, ring, mask, SPAN, plan=_plan(2000, S))
+        else:
+            races._nn1_masked_cuda(q, ring_a, ia, xyz, ring, mask, race, SPAN,
+                                   plan=_plan(2000, S))
+        assert races.merge_min.launches == before + (S > 1)

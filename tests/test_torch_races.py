@@ -217,15 +217,94 @@ def test_check_plan_rejects_plans_that_miss_m(S, L, M):
         races._check_plan(S, L, M)
 
 
-def _merge_min(parts):
+def _merge_min(parts, design=None):
     """csrc/split.cuh's merge_min in Python: the chunks' (min, argmin) pairs
-    in chunk order, strict "<", from (+inf, 0)."""
-    best = np.full(parts[0][1].shape, np.inf, np.float32)
-    bidx = np.zeros(parts[0][0].shape, np.int32)
-    for i, d in parts:
-        take = d < best
-        best[take], bidx[take] = d[take], i[take]
-    return bidx, best
+    merged to what the chunk-order scan with strict "<" from (+inf, 0) gives.
+    ``design`` = (QB, WARPS) takes the kernel's order instead: W = WARPS *
+    32 / QB threads per query, thread c scanning chunks c, c + W, ... with
+    "<" from (+inf, z = -1), then the lexicographic (d, z) minimum by the
+    shuffle butterfly inside each warp, then across the warps in order."""
+    if design is None:
+        best = np.full(parts[0][1].shape, np.inf, np.float32)
+        bidx = np.zeros(parts[0][0].shape, np.int32)
+        for i, d in parts:
+            take = d < best
+            best[take], bidx[take] = d[take], i[take]
+        return bidx, best
+    qb, warps = design
+    per_warp = 32 // qb
+    W = per_warp * warps
+    shape = parts[0][1].shape
+    # per thread: (d, z, j)
+    th = [[np.full(shape, np.inf, np.float32), np.full(shape, -1), np.zeros(shape, np.int32)]
+          for _ in range(W)]
+    for z, (i, d) in enumerate(parts):
+        t = th[z % W]
+        take = d < t[0]
+        t[0][take], t[1][take], t[2][take] = d[take], z, i[take]
+
+    def join(a, b):
+        take = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+        return [np.where(take, y, x) for x, y in zip(a, b)]
+
+    off = 1
+    while off < per_warp:            # __shfl_xor_sync over the lane bits above QB
+        th = [join(th[c], th[c ^ off]) if (c % per_warp) ^ off < per_warp else th[c]
+              for c in range(W)]
+        off *= 2
+    out = th[0]
+    for w in range(1, warps):        # warp 0 reads the others' results in order
+        out = join(out, th[w * per_warp])
+    return out[2], out[0]
+
+
+MERGE_SIZES = [1, 2, 3, 5, 31, 32, 33, 66, 100, 130]
+# merge_min<QB, WARPS>: the built shape (csrc/split.cuh MERGE_QB, MERGE_WARPS)
+# and the two it was measured against
+MERGE_SHAPES = [(8, 4), (32, 4), (1, 1)]
+
+
+def _chunk_partials(S, n=70, L=9, seed=0):
+    """S chunks' (argmin, min) pairs of n queries, as the split races write
+    them: integer distances (ties across chunks), an index in the chunk's
+    range [z*L, (z+1)*L), and (+inf, 0) where a chunk had no candidate."""
+    rng = np.random.RandomState(seed + S)
+    parts = []
+    for z in range(S):
+        d = rng.randint(0, 4, n).astype(np.float32)
+        d[rng.rand(n) < 0.2] = races.BIG
+        i = (z * L + rng.randint(0, L, n)).astype(np.int32)
+        none = rng.rand(n) < 0.3
+        d[none], i[none] = np.inf, 0
+        parts.append((i, d))
+    return parts
+
+
+@pytest.mark.parametrize("S", MERGE_SIZES)
+@pytest.mark.parametrize("design", MERGE_SHAPES, ids=lambda d: f"{d[0]}x{d[1]}")
+def test_merge_min_grouping_equals_the_chunk_order_scan(design, S):
+    # the kernel's strided threads, warp butterfly and cross-warp join give
+    # the sequential merge's bits, ties across chunks included, for the
+    # shape the kernel is built with and two others of its template
+    parts = _chunk_partials(S)
+    want_i, want_d = _merge_min(parts)
+    got_i, got_d = _merge_min(parts, design)
+    np.testing.assert_array_equal(got_d, want_d)
+    np.testing.assert_array_equal(got_i, want_i)
+    assert (want_d == np.inf).any() or S > 3
+
+
+@pytest.mark.parametrize("S", MERGE_SIZES)
+def test_merge_min_plain_equals_the_chunk_order_scan(S):
+    # the plain version (the CPU path of races.merge_min), two searches
+    parts = [_chunk_partials(S, seed=s) for s in (0, 1)]
+    pd = torch.from_numpy(np.stack([np.stack([d for _, d in p]) for p in parts]))
+    pi = torch.from_numpy(np.stack([np.stack([i for i, _ in p]) for p in parts]))
+    got_i, got_d = races.merge_min(pd, pi)
+    for k, p in enumerate(parts):
+        want_i, want_d = _merge_min(p)
+        np.testing.assert_array_equal(got_d[k].numpy(), want_d)
+        np.testing.assert_array_equal(got_i[k].numpy(), want_i)
 
 
 @pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])

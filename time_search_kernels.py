@@ -1,9 +1,10 @@
-"""Device times of the search kernels (k-NN, bc_races, nn1, nn1_masked) at
-the main paths' shapes, for one checkout of the port at a time, on one
-NVIDIA card.
+"""Device times of the search kernels (k-NN, bc_races, nn1, nn1_masked,
+fused_races, merge_min) at the main paths' shapes, for one checkout of the
+port at a time, on one NVIDIA card.
 
     python3 time_search_kernels.py --save-inputs FILE
     python3 time_search_kernels.py --inputs FILE [--root DIR] [--label NAME] [--only KINDS]
+                                   [--variants]
 
 ``--save-inputs`` builds the searches' inputs on the card with
 ``chip_smoke.py``'s problem builders and saves them:
@@ -23,7 +24,13 @@ NVIDIA card.
   the odometry batch solve's surf and corner searches at its first
   correspondence refresh (phase 3);
 * nn1 1x1024 vs 8192 and 1x256 vs 2048, nn1_masked "adj" 1x256 vs 2048: the
-  single-stream drive's first surf and corner searches (phase 8).
+  single-stream drive's first surf and corner searches (phase 8);
+* fused_races at the same four shapes, surf (with race B) against the
+  less-flat reference and corner against the less-sharp one: the fused
+  route's searches (``COOPER_PALLAS_FUSED=1``);
+* merge_min on the chunks' results of nn1 at 1x1024 vs 8192 split as its
+  plan splits it (S = 66), and into S = 32 and S = 2; of nn1 at 1x256 vs
+  2048 (S = 32); and of bc_races' two searches at 1x1024 vs 8192 (S = 66).
 
 The second form imports ``cooper_mapper_torch`` from ``--root`` (default:
 this checkout), so that two commits can be timed on the same inputs, in
@@ -35,8 +42,15 @@ call of the port's own kernels in it (``torch.profiler`` over 20 calls, as
 ``profile_torch_solve.py`` reports them), with their launches per call, and
 of every kernel the call launches (the wrapper's input prep included); the
 bound (``chip_smoke.py``'s pairs x FP32 operations per pair over the non-FMA
-FP32 rate); the card's name and power limit.  A design variant is timed the
-same way: edit its constant in a copy of the checkout and pass ``--root``.
+FP32 rate, or for merge_min the bytes over the HBM rate); the card's name
+and power limit.  ``device_ms_by_kernel`` splits the port's kernels by name,
+so that merge_min's time inside a split race is read in a checkout that has
+no merge_min kind.  ``--variants`` also times each fused plan
+(``races.FUSED_PLANS``, forced through ``plan=``), where the checkout has
+them.  Another design variant (a fused plan added to ``FUSED_PLANS`` and to
+``launch_fused_plan`` in ``csrc/races.cu``, merge_min's ``MERGE_QB`` /
+``MERGE_WARPS`` in ``csrc/split.cuh``) is timed as a checkout: edit it in a
+copy and pass ``--root``.
 """
 
 from __future__ import annotations
@@ -53,12 +67,11 @@ import torch
 import chip_smoke as cs
 
 REPS = 20
-# the port's own kernels, by the names the profiler shows (a name contains one)
-OWN_KERNELS = ("knn_kernel", "bc_races_kernel", "nn1_kernel", "masked_kernel", "merge_first_k",
-               "merge_min")
 
 
 def save_inputs(path):
+    from cooper_mapper_torch.build import library
+    from cooper_mapper_torch.ops import races
     from cooper_mapper_torch.utils import twist
 
     dev = "cuda"
@@ -90,6 +103,21 @@ def save_inputs(path):
     out["nn1 1x256 vs 2048"] = dict(kind="nn1", q=sq, **ref(c_ref))
     ra, ia = cs.race_a_ring(sq, c_ref)
     out["nn1_masked adj 1x256 vs 2048"] = dict(kind="nn1_masked", q=sq, ra=ra, ia=ia, **ref(c_ref))
+    out["fused_races surf 1x1024 vs 8192"] = dict(kind="fused_races", q=fq, with_same=True,
+                                                  **ref(s_ref))
+    out["fused_races corner 1x256 vs 2048"] = dict(kind="fused_races", q=sq, with_same=False,
+                                                   **ref(c_ref))
+    n_sm = races.sm_count(dev)
+    nn1_bq = library().cooper_nn1_block_queries()
+    for q, r, S in ((fq, s_ref, None), (fq, s_ref, 32), (fq, s_ref, 2), (sq, c_ref, None)):
+        S = S or races._split_plan(1, q.shape[1], r.xyz.shape[0], n_sm, nn1_bq)[0]
+        pd, pi = cs.chunk_partials(q, r, S, "nn1")
+        out[f"merge_min S={S} n={q.shape[1]}"] = dict(kind="merge_min", pd=pd, pi=pi)
+    S = races._split_plan(1, fq.shape[1], s_ref.xyz.shape[0], n_sm,
+                          library().cooper_bc_races_block_queries())[0]
+    ra, ia = cs.race_a_ring(fq, s_ref)
+    pd, pi = cs.chunk_partials(fq, s_ref, S, "bc_races", ra, ia)
+    out[f"merge_min S={S} n={fq.shape[1]} x2 (bc_races)"] = dict(kind="merge_min", pd=pd, pi=pi)
 
     # odometry batch (phase 3): the de-warped queries of the first refresh
     sharp1, flat1, ref_c, ref_s, _ = cs.make_problem(dev)
@@ -104,29 +132,17 @@ def save_inputs(path):
     ra, ia = cs.race_a_ring(qc, ref_c)
     out["nn1_masked adj 512x256 vs 256"] = dict(kind="nn1_masked", q=qc, ra=ra, ia=ia,
                                                 **ref(ref_c))
+    out["fused_races surf 512x768 vs 3840"] = dict(kind="fused_races", q=qs, with_same=True,
+                                                   **ref(ref_s))
+    out["fused_races corner 512x256 vs 256"] = dict(kind="fused_races", q=qc, with_same=False,
+                                                    **ref(ref_c))
     torch.save({k: {n: (t.cpu() if torch.is_tensor(t) else t) for n, t in v.items()}
                 for k, v in out.items()}, path)
-    print(json.dumps({k: tuple(v["q"].shape) + tuple(v["xyz"].shape) for k, v in out.items()}))
+    print(json.dumps({k: tuple(v["pd" if v["kind"] == "merge_min" else "q"].shape)
+                      for k, v in out.items()}))
 
 
-def device_ms(fn):
-    """(device ms per call of the port's kernels, their launches per call,
-    device ms per call of every kernel the call launches: the wrapper's
-    input prep too)."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    every = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ev = [e for e in every if any(k in e.name for k in OWN_KERNELS)]
-    ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / REPS / 1e3
-    return ms(ev), len(ev) / REPS, ms(every)
-
-
-def time_tree(path, label, only=None):
+def time_tree(path, label, only=None, variants=False):
     from cooper_mapper_torch.ops import knn, races
 
     data = {k: v for k, v in torch.load(path).items() if not only or v["kind"] in only}
@@ -134,33 +150,64 @@ def time_tree(path, label, only=None):
                          capture_output=True, text=True, timeout=60).stdout.strip()
     res = {"label": label, "module": os.path.dirname(knn.__file__), "card": smi}
     for name, v in data.items():
+        if v["kind"] == "merge_min" and not hasattr(races, "merge_min"):
+            res[name] = "no merge_min entry in this checkout: see the split races' by-kernel times"
+            continue
         t = {n: (x.cuda() if torch.is_tensor(x) else x) for n, x in v.items()}
-        q, r, m = t["q"], t["xyz"], t["mask"]
-        if v["kind"] == "knn":
-            kern = lambda: knn.knn(q, r, m, 5)
-            plain = knn.knn_plain(q, r, m, 5)
-        elif v["kind"] == "nn1":
-            kern = lambda: races.nn1(q, r, m)
-            plain = races.nn1_plain(q, r, m)
-        elif v["kind"] == "nn1_masked":
-            args = (q, t["ra"], t["ia"], r, t["ring"], m, "adj", 2.5)
-            kern = lambda: races.nn1_masked(*args)
-            plain = races.nn1_masked_plain(*args)
+        forced = {}
+        if v["kind"] == "merge_min":
+            pd, pi = t["pd"], t["pi"]
+            kern = lambda: races.merge_min(pd, pi)
+            plain = races.merge_min_plain(pd, pi)
+            searches, S, n = pd.shape
+            bound = (searches * S * n * 8 + searches * n * 8) / cs.HBM_BYTES_PER_S * 1e3
+            res[name] = {"searches": searches, "S": S, "n": n}
         else:
-            args = (q, t["ra"], t["ia"], r, t["ring"], m, 2.5)
-            kern = lambda: races.bc_races(*args)
-            plain = races.bc_races_plain(*args)
-        got = kern()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, plain)):
-            raise SystemExit(f"time_search_kernels FAILED: {name} differs from its plain version")
-        B, Q, _ = q.shape
-        pairs = B * Q * r.shape[-2]
-        dms, launches, all_ms = device_ms(kern)
-        res[name] = {"wrapper_ms": cs.time_ms(kern, REPS), "device_ms": dms,
-                     "kernel_launches_per_call": launches, "device_ms_all_kernels": all_ms,
-                     "bound_ms": pairs * cs.OPS_PER_PAIR[v["kind"]] / cs.FP32_PEAK_OPS * 1e3}
-        print(f"{label} {name}: {res[name]}", flush=True)
+            q, r, m = t["q"], t["xyz"], t["mask"]
+            ops = cs.OPS_PER_PAIR[v["kind"]]
+            if v["kind"] == "knn":
+                kern = lambda: knn.knn(q, r, m, 5)
+                plain = knn.knn_plain(q, r, m, 5)
+            elif v["kind"] == "nn1":
+                kern = lambda: races.nn1(q, r, m)
+                plain = races.nn1_plain(q, r, m)
+            elif v["kind"] == "nn1_masked":
+                args = (q, t["ra"], t["ia"], r, t["ring"], m, "adj", 2.5)
+                kern = lambda: races.nn1_masked(*args)
+                plain = races.nn1_masked_plain(*args)
+            elif v["kind"] == "fused_races":
+                args = (q, r, t["ring"], m, v["with_same"], 2.5)
+                kern = lambda: races.fused_races(*args)
+                plain = races.fused_races_plain(*args)
+                ops = cs.OPS_PER_PAIR["fused_races" if v["with_same"] else "fused_races_corner"]
+                if variants and hasattr(races, "FUSED_PLANS"):
+                    forced = {f"plan G={g} QPT={u}":
+                              (lambda p=(g, u): races._fused_races_cuda(*args, plan=p))
+                              for g, u in races.FUSED_PLANS}
+            else:
+                args = (q, t["ra"], t["ia"], r, t["ring"], m, 2.5)
+                kern = lambda: races.bc_races(*args)
+                plain = races.bc_races_plain(*args)
+            B, Q, _ = q.shape
+            bound = B * Q * r.shape[-2] * ops / cs.FP32_PEAK_OPS * 1e3
+            res[name] = {}
+            if v["kind"] == "fused_races" and hasattr(races, "_fused_plan"):
+                res[name]["plan"] = races._fused_plan(B, Q, races.sm_count(q.device))
+        for tag, fn in {"": kern, **forced}.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                raise SystemExit(f"time_search_kernels FAILED: {name} {tag} differs from its "
+                                 "plain version")
+            dms, launches, all_ms, by_kernel = cs.device_ms(fn, cs.OWN_KERNELS, REPS)
+            row = {"wrapper_ms": cs.time_ms(fn, REPS), "device_ms": dms,
+                   "kernel_launches_per_call": launches, "device_ms_all_kernels": all_ms,
+                   "device_ms_by_kernel": by_kernel}
+            if tag:
+                res[name].setdefault("variants", {})[tag] = row
+            else:
+                res[name].update(row, bound_ms=bound)
+            print(f"{label} {name} {tag}: {row}", flush=True)
     print(json.dumps(res), flush=True)
 
 
@@ -171,7 +218,9 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--only", help="comma-separated kinds to time (knn, bc_races, nn1, "
-                                   "nn1_masked); default all")
+                                   "nn1_masked, fused_races, merge_min); default all")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time each fused plan the checkout builds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_search_kernels: no CUDA device")
@@ -182,7 +231,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     import cooper_mapper_torch  # noqa: F401
 
-    time_tree(args.inputs, args.label, args.only and args.only.split(","))
+    time_tree(args.inputs, args.label, args.only and args.only.split(","), args.variants)
 
 
 if __name__ == "__main__":
