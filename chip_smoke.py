@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Three paths run, each through the entry points a user calls.
+Four paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -25,6 +25,11 @@ VLP-16 sweeps (16 x 1024) of a straight drive, 0.35 m per sweep, in a
 (``init_sweep``, then ``odometry_sweep`` / ``mapping_sweep`` on every second
 sweep) at the default ``PipelineConfig``: the default capacities and the
 default 21 x 11 x 21 cube map on the card.
+
+Pipeline: the system's own entry point, ``models/pipeline.SlamPipeline``, over
+the single-stream sweeps in its three modes ("mapping" with IMU / UKF fusion
+and the in-loop cube-map dedup, "local", "localization"), then README.md's
+Quick start (a 49-sweep figure eight) on the card.
 
 Phases, each announced on its own line as it starts:
 
@@ -89,7 +94,35 @@ Phases, each announced on its own line as it starts:
 12. the card against the CPU at the reduced configuration of
    tests/test_pipeline.py::TestFusedSteps (16 x 512 sweeps, a 7 x 3 x 7
    map, 6 sweeps): every pose within 2e-3;
-13. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+13. ``SlamPipeline(mode="mapping")`` over phase 9's sweeps at the default
+   ``PipelineConfig`` but for TestImuFusion's ``mapping_stride=1`` and
+   ``cool_time_duration=0``, with
+   an IMU window per sweep (10 samples of zero acc / gyro, 0.1 s per sweep),
+   every launch counter at 0 first: per sweep the split route's race
+   launches of phase 9 and 22 k-NN launches where a map solve ran; the final
+   merged position within 0.3 m of the simulator's; ``stats()`` adds up;
+   dedup ran; ``fused_pose()`` within 0.5 m of the last merged pose
+   (TestImuFusion's bound); ``imu_rate_poses`` finite at [10, 4, 4]; the
+   StageTimer report and ms per sweep; then ``dedup_active`` on the built
+   map, on the card twice and on the CPU: bit-identical;
+14. ``SlamPipeline(mode="local")`` over the same sweeps at the default
+   config but for ``max_frame_corner=2048`` (the window's corner slots; at
+   the default 4096 the window rejects the 2048-point corner frame, in the
+   JAX package too): the final position within 0.3 m, the ATE printed;
+15. ``SlamPipeline(mode="localization")`` on phase 13's map over phase 11's
+   drive, seeded by ``initial_pose`` as phase 11: the steady error below half
+   the seed error, the map unchanged;
+16. README.md's Quick start in the port (``make_room_world(seed=1)``,
+   ``figure_eight_trajectory(50)``, 49 sweeps, ``PipelineConfig()``): every
+   pose finite, ``pipeline_ate`` of mapping and odometry printed;
+17. the pipeline on the card against the CPU at tests/test_pipeline.py's
+   reduced configuration (``_small_cfg``, ``_simulate(6)``) on the same
+   sweeps (simulated on the CPU): mapping with dedup after every solve and
+   IMU windows, local, and localization on the mapping run's map, every
+   merged pose within 2e-3; ``dedup_active`` of the card's map on the card,
+   again, and on the CPU: bit-identical; then, printed only, the mapping
+   drive on the card's own simulated sweeps against the CPU's;
+18. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
@@ -98,7 +131,8 @@ Phases, each announced on its own line as it starts:
    drive's, its shape the single-stream surf search and its other three
    shapes under ``more_shapes``; the merge_min row's launches are the split
    route's drive's, at S = 66 of 1024 queries with S = 32 under
-   ``more_shapes``), then the result line.
+   ``more_shapes``; every row's ``pipeline`` holds its launches and merges in
+   phase 13's drive), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -1233,6 +1267,316 @@ def reduced_card_vs_cpu_phase(device):
     return dx
 
 
+PIPE_FUSED_TOL = 0.5          # tests/test_pipeline.py::TestImuFusion
+IMU_SAMPLES = 10
+
+
+def imu_window(i, device):
+    """TestImuFusion's IMU window for sweep i: IMU_SAMPLES samples of zero acc
+    and gyro over the 0.1 s that ends at the sweep's stamp 0.1 (i + 1)."""
+    from cooper_mapper_torch.fusion import imu_queue
+
+    stamp = 0.1 * (i + 1)
+    st = torch.linspace(stamp - 0.1, stamp, IMU_SAMPLES, dtype=torch.float64).to(torch.float32)
+    z = torch.zeros(IMU_SAMPLES, 3, device=device)
+    return stamp, imu_queue.ImuBatch(st.to(device), z, z.clone(),
+                                     torch.ones(IMU_SAMPLES, dtype=torch.bool, device=device))
+
+
+def drive_pipeline(pipe, sweeps, label, imu=False, check_launches=True):
+    """``pipe.process`` over the sweeps (with TestImuFusion's IMU windows when
+    ``imu``), every launch counter at 0 first.  Per sweep after the first it
+    checks the split route's race launches (as phase 9's) and 2 x 11 k-NN
+    launches where a map solve ran.  Returns (results, ms per sweep from sweep
+    3 on, the drive's launches with the split searches' merges, the last IMU
+    window)."""
+    on_card = pipe.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    race = {"nn1": 10, "nn1_masked": 5, "bc_races": 5, "fused_races": 0}
+    race_merges = split_race_merges(pipe.cfg, race["bc_races"], pipe.device) if on_card else {}
+    race["merge_min"] = sum(race_merges.values())
+    knn_per_solve = 2 * (pipe.cfg.scan_match.max_iterations + 1)
+    reset_launches()
+    results, ms, window = [], [], None
+    for i, sw in enumerate(sweeps):
+        before = read_launches()
+        sync()
+        t0 = time.perf_counter()
+        if imu:
+            stamp, window = imu_window(i, pipe.device)
+            r = pipe.process(sw, imu=window, stamp=stamp)
+        else:
+            r = pipe.process(sw)
+        sync()
+        dt = (time.perf_counter() - t0) * 1e3
+        results.append(r)
+        if i >= 3:
+            ms.append(dt)
+        after = read_launches()
+        got = {k: after[k] - before[k] for k in after}
+        want = (dict.fromkeys(after, 0) if i == 0 else
+                dict(race, knn=knn_per_solve if r.mapping_success is not None else 0))
+        if check_launches and got != want:
+            fail(f"{label}: sweep {i} launched {got}, expected {want}")
+    return results, ms, dict(read_launches(), merges=read_merges()), window
+
+
+def ms_stat(ms):
+    return f"{min(ms):.1f} / {float(np.median(ms)):.1f} (runs {[round(x, 1) for x in ms]})"
+
+
+def maps_equal(a, b):
+    """Two cube maps hold the same points, masks, counts and origin, bit for bit
+    (the guard rows, which hold what inserts dropped, are left out)."""
+    return all(torch.equal(x.cpu(), y.cpu()) for ca, cb in ((a.corner, b.corner), (a.surf, b.surf))
+               for x, y in ((ca.xyz, cb.xyz), (ca.mask, cb.mask), (ca.count, cb.count))
+               ) and torch.equal(a.origin.cpu(), b.origin.cpu())
+
+
+def copy_map(m, device):
+    from cooper_mapper_torch.maps.feature_map import CubeCloud, FeatureMapState
+
+    cc = lambda c: CubeCloud(c.rows.to(device, copy=True), c.row_mask.to(device, copy=True),
+                             c.count.to(device, copy=True))
+    return FeatureMapState(cc(m.corner), cc(m.surf), m.origin.to(device, copy=True))
+
+
+def dedup_card_vs_cpu(map_state, pos, cfg, label):
+    """dedup_active on a copy of ``map_state`` on the card, again on another
+    copy (a repeat), and on a CPU copy, at ``pos``: all three bit-identical."""
+    from cooper_mapper_torch.maps import feature_map as fm
+
+    runs = [fm.dedup_active(copy_map(map_state, d), pos.to(d), cfg)
+            for d in (map_state.origin.device, map_state.origin.device, "cpu")]
+    n = [int(r.surf.count.sum()) + int(r.corner.count.sum()) for r in runs]
+    same = maps_equal(runs[0], runs[1]) and maps_equal(runs[0], runs[2])
+    log(f"    {label}: dedup_active of the map on the card, again, and on the CPU: points "
+        f"{int(map_state.surf.count.sum()) + int(map_state.corner.count.sum())} -> {n}; "
+        f"bit-identical {same}")
+    if not same:
+        fail(f"{label}: dedup_active on the card is not bit-identical to the CPU or a repeat")
+
+
+def pipeline_phase(sweeps, truth, device):
+    """SlamPipeline, "mapping" with IMU fusion, over phase 9's sweeps at the
+    default PipelineConfig but for TestImuFusion's two settings: a map solve
+    on every sweep (the UKF corrects only after an accepted solve) and no
+    predict cool-down."""
+    from cooper_mapper_torch.config import PipelineConfig, UKFConfig
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    cfg = PipelineConfig(mapping_stride=1, ukf=UKFConfig(cool_time_duration=0.0))
+    log(f"[13] SlamPipeline(mode='mapping') with IMU fusion: {len(sweeps)} sweeps of phase 9, "
+        f"PipelineConfig(mapping_stride=1, ukf=UKFConfig(cool_time_duration=0.0)), "
+        f"{IMU_SAMPLES} IMU samples per sweep, on {device}")
+    pipe = SlamPipeline(cfg, "mapping", device=device)
+    results, ms, launches, window = drive_pipeline(pipe, sweeps, "pipeline", imu=True)
+    st = pipe.stats()
+    frame = np.linalg.inv(truth[1])
+    gt = frame @ truth[-1]
+    merged = results[-1].merged_pose
+    gt_err = float(np.linalg.norm(merged[:3, 3] - gt[:3, 3]))
+    fused = pipe.fused_pose()
+    fused_err = float(np.linalg.norm(fused[:3, 3] - merged[:3, 3]))
+    poses, valid = pipe.imu_rate_poses(window)
+    log(f"    launches {launches}; stats {st}; timer calls {dict(pipe.timer.calls)}")
+    log(f"    final merged position {merged[:3, 3].round(4).tolist()} vs the simulator's "
+        f"{gt[:3, 3].round(4).tolist()}: error {gt_err:.4f} m (< {GT_TOL}); fused pose "
+        f"{fused[:3, 3].round(4).tolist()}, {fused_err:.4f} m from it (< {PIPE_FUSED_TOL}); "
+        f"imu_rate_poses {poses.shape}, finite {bool(np.isfinite(poses).all())}, valid "
+        f"{int(valid.sum())}")
+    log(f"    ms per sweep (best / median of sweeps 3..{len(sweeps) - 1}): {ms_stat(ms)}")
+    log("    StageTimer report:\n" + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
+    if not (np.isfinite(np.stack(pipe.trajectory)).all() and gt_err < GT_TOL):
+        fail("the pipeline drive left the ground-truth bound")
+    if st["match_count"] + st["fail_match_count"] != st["mapping_solves"] or st["match_count"] < 1:
+        fail(f"the pipeline's stats do not add up: {st}")
+    if pipe.timer.calls["dedup"] < 1:
+        fail("the pipeline drive never ran dedup_active")
+    if not (np.isfinite(fused).all() and fused_err < PIPE_FUSED_TOL):
+        fail("the fused UKF pose is not near the merged pose")
+    if not (poses.shape == (IMU_SAMPLES, 4, 4) and np.isfinite(poses).all()):
+        fail("imu_rate_poses is not finite at its shape")
+    dedup_card_vs_cpu(pipe.single_map_state(), torch.from_numpy(merged[:3, 3]), cfg.feature_map,
+                      "full width")
+    return pipe, dict(ms=ms, launches=launches, stats=st, gt_err=gt_err, fused_err=fused_err,
+                      timer=pipe.timer.report())
+
+
+def local_phase(sweeps, truth, device):
+    """SlamPipeline, "local", over phase 9's sweeps at the default config but
+    for the window's corner slots: 2048, the corner frame's own capacity
+    (max_less_sharp).  At the default 4096 the window rejects the 2048-point
+    frame in both packages (tests/test_torch_pipeline.py)."""
+    from cooper_mapper_torch.config import MatcherConfig, PipelineConfig
+    from cooper_mapper_torch.io import evaluation
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    cfg = PipelineConfig(matcher=MatcherConfig(max_frame_corner=2048))
+    log(f"[14] SlamPipeline(mode='local'), PipelineConfig(matcher=MatcherConfig("
+        f"max_frame_corner=2048)), phase 9's sweeps, on {device}")
+    pipe = SlamPipeline(cfg, "local", device=device)
+    results, ms, launches, _ = drive_pipeline(pipe, sweeps, "local pipeline")
+    frame = np.linalg.inv(truth[1])
+    gt = frame @ truth[-1]
+    gt_err = float(np.linalg.norm(results[-1].merged_pose[:3, 3] - gt[:3, 3]))
+    ate = evaluation.pipeline_ate(np.stack(pipe.trajectory), np.stack(truth[1:]))
+    log(f"    launches {launches}; stats {pipe.stats()}; final position error {gt_err:.4f} m "
+        f"(< {GT_TOL}); ATE rmse {ate.rmse:.4f} m (pipeline_ate, aligned); ms per sweep "
+        f"{ms_stat(ms)}")
+    log("    StageTimer report:\n" + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
+    if not (np.isfinite(np.stack(pipe.trajectory)).all() and gt_err < GT_TOL):
+        fail("the local-mode pipeline left the ground-truth bound")
+    return dict(ms=ms, gt_err=gt_err, ate=ate.rmse)
+
+
+def pipeline_localization_phase(map_state, truth, device):
+    """SlamPipeline(mode='localization') on phase 13's map over phase 11's
+    drive, seeded by initial_pose as phase 11 is."""
+    from cooper_mapper_torch.config import PipelineConfig
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    log(f"[15] SlamPipeline(mode='localization') on phase 13's map: {LOC_SWEEPS + 1} sweeps "
+        f"{LOC_OFFSET_X} m to the side, seeded by initial_pose")
+    frame = np.linalg.inv(truth[1])
+    before = copy_map(map_state, map_state.origin.device)
+    sweeps, loc_truth = build_sweeps(device, n=LOC_SWEEPS + 1, start_x=LOC_OFFSET_X)
+    seed_true = frame @ loc_truth[1]
+    c, s = np.cos(0.035), np.sin(0.035)
+    perturb = np.array([[c, 0, s, 0.3], [0, 1, 0, -0.1], [-s, 0, c, 0.2], [0, 0, 0, 1]],
+                       np.float32)
+    seed = (seed_true @ perturb).astype(np.float32)
+    seed_err = float(np.linalg.norm(seed[:3, 3] - seed_true[:3, 3]))
+    pipe = SlamPipeline(PipelineConfig(), "localization", map_state=map_state, initial_pose=seed,
+                        device=device)
+    results, ms, launches, _ = drive_pipeline(pipe, sweeps, "localization pipeline")
+    errs = [float(np.linalg.norm(r.merged_pose[:3, 3] - (frame @ loc_truth[i + 1])[:3, 3]))
+            for i, r in enumerate(results[1:], 1)]
+    steady = float(np.mean(errs[2:]))
+    unchanged = maps_equal(before, map_state)
+    log(f"    launches {launches}; stats {pipe.stats()}; seed error {seed_err:.4f} m; errors "
+        f"{[round(e, 4) for e in errs]}; steady {steady:.4f} m (< {0.5 * seed_err:.4f}); map "
+        f"unchanged {unchanged}")
+    if not steady < 0.5 * seed_err:
+        fail("the localization pipeline did not recover from the perturbed seed")
+    if not unchanged:
+        fail("the localization pipeline wrote the map")
+    return dict(steady=steady, seed_err=seed_err)
+
+
+def quick_start_phase(device):
+    """README.md's Quick start, in the port, on the card."""
+    from cooper_mapper_torch.config import PipelineConfig
+    from cooper_mapper_torch.io import evaluation, sim
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    log("[16] README Quick start: make_room_world(seed=1), figure_eight_trajectory(50), 49 sweeps, "
+        "PipelineConfig(), mode 'mapping'")
+    world = sim.make_room_world(seed=1, device=device)
+    poses = sim.figure_eight_trajectory(50)
+    pipe = SlamPipeline(PipelineConfig(), mode="mapping", device=device)
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    for i in range(49):
+        sweep = sim.scan_sweep(world, torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]))
+        pipe.process(sweep)
+    sync()
+    wall = time.perf_counter() - t0
+    est, odo = np.stack(pipe.trajectory), np.stack(pipe.odom_trajectory)
+    ate, ate_odo = evaluation.pipeline_ate(est, poses), evaluation.pipeline_ate(odo, poses)
+    log(f"    {wall:.2f} s for 49 sweeps; stats {pipe.stats()}; pipeline_ate rmse mapping "
+        f"{ate.rmse:.4f} m, odometry only {ate_odo.rmse:.4f} m (printed, not gated)")
+    log("    StageTimer report:\n" + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
+    if not (np.isfinite(est).all() and np.isfinite(odo).all()):
+        fail("the Quick start drive gave a non-finite pose")
+    return dict(ate=ate.rmse, ate_odo=ate_odo.rmse, wall_s=wall)
+
+
+def reduced_pipeline_cfg(C, **changes):
+    """tests/test_pipeline.py::_small_cfg."""
+    return dataclasses.replace(C.PipelineConfig(
+        registration=C.RegistrationConfig(n_rings=16, max_points_per_ring=512),
+        scan_match=C.ScanMatchConfig(score_threshold=50.0),
+        feature_map=C.MapConfig(n_cubes=(7, 3, 7), cube_size=20.0, corner_cube_capacity=1024,
+                                surf_cube_capacity=2048, surround_corner_capacity=8192,
+                                surround_surf_capacity=16384, valid_distance=60.0),
+        matcher=C.MatcherConfig(max_frame_corner=2048, max_frame_surf=4096, dedup_stride=1),
+        mapping_stride=2), **changes)
+
+
+def simulate_reduced(device, n=6, width=768, speed=0.35, yaw_rate=0.02):
+    """tests/test_pipeline.py::_simulate with the port's simulator."""
+    from cooper_mapper_torch.io import sim
+
+    world = sim.make_room_world(size=(30.0, 4.0, 40.0), n_pillars=8, seed=21, device=device)
+    poses = [np.eye(4, dtype=np.float32)]
+    poses[0][1, 3] = 1.5
+    c, s = np.cos(yaw_rate), np.sin(yaw_rate)
+    step = np.array([[c, 0, s, 0.2 * speed], [0, 1, 0, 0], [-s, 0, c, speed], [0, 0, 0, 1]],
+                    np.float32)
+    for _ in range(n):
+        poses.append(poses[-1] @ step)
+    return [sim.scan_sweep(world, torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]),
+                           16, width) for i in range(n)]
+
+
+def reduced_pipeline_card_vs_cpu_phase(device):
+    """The pipeline at tests/test_pipeline.py's reduced configuration on the
+    card and on the CPU, on the same sweeps (simulated on the CPU): mapping
+    with dedup after every solve and IMU windows, local, and localization
+    on the mapping run's map.  Then, for information, the mapping drive on
+    the card's own simulated sweeps against the CPU's."""
+    from cooper_mapper_torch import config as C
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.ops.features import Sweep
+
+    log("[17] SlamPipeline card vs CPU at tests/test_pipeline.py's reduced configuration "
+        "(_small_cfg, _simulate(6)): mapping (dedup_stride=1, IMU), local, localization")
+    cfg = reduced_pipeline_cfg(C)
+    seed = np.eye(4, dtype=np.float32)
+    seed[:3, 3] = [0.1, -0.05, 0.05]
+    sweeps_cpu = simulate_reduced("cpu")
+    to_card = lambda sw: [Sweep(s.xyz.to(device), s.mask.to(device), s.rel_time.to(device))
+                          for s in sw]
+    merged = lambda results: np.stack([r.merged_pose for r in results])
+    out, dx = {}, {}
+    for dev, sweeps in ((device, to_card(sweeps_cpu)), ("cpu", sweeps_cpu)):
+        card = dev != "cpu"
+        runs = {}
+        for mode, kw in (("mapping", dict(imu=True)), ("local", {})):
+            pipe = SlamPipeline(cfg, mode, device=dev)
+            res = drive_pipeline(pipe, sweeps, f"reduced {mode} {dev}", check_launches=card, **kw)
+            runs[mode] = (pipe, res[0])
+        loc_map = copy_map(runs["mapping"][0].single_map_state(), dev)
+        pipe = SlamPipeline(cfg, "localization", map_state=loc_map, initial_pose=seed, device=dev)
+        runs["localization"] = (pipe, drive_pipeline(pipe, sweeps, f"reduced localization {dev}",
+                                                     check_launches=card)[0])
+        out[dev] = runs
+    for mode in ("mapping", "local", "localization"):
+        dx[mode] = float(np.abs(merged(out[device][mode][1]) - merged(out["cpu"][mode][1])).max())
+    fused = float(np.abs(out[device]["mapping"][0].fused_pose()
+                         - out["cpu"]["mapping"][0].fused_pose()).max())
+    log(f"    same sweeps: max |dW| card vs CPU per mode {dx} (tolerance {CPU_TOL}); fused pose "
+        f"{fused:.3g}; stats card {out[device]['mapping'][0].stats()} / CPU "
+        f"{out['cpu']['mapping'][0].stats()}")
+    if not all(v <= CPU_TOL for v in dx.values()):
+        fail("the pipeline on the card and on the CPU disagree")
+    card_map = out[device]["mapping"][0].single_map_state()
+    pos = torch.from_numpy(out[device]["mapping"][1][-1].merged_pose[:3, 3])
+    dedup_card_vs_cpu(card_map, pos, cfg.feature_map, "reduced")
+    # information: each device's own simulator (sin / cos round differently)
+    own = simulate_reduced(device)
+    d_sim = max(float((a.xyz.cpu() - b.xyz)[b.mask].abs().max()) for a, b in zip(own, sweeps_cpu))
+    pipe = SlamPipeline(cfg, "mapping", device=device)
+    res = drive_pipeline(pipe, own, "reduced mapping, the card's own sweeps", imu=True)[0]
+    dx_own = np.abs(merged(res) - merged(out["cpu"]["mapping"][1])).max(axis=(1, 2))
+    log(f"    information: the card's own simulated sweeps differ from the CPU's by up to "
+        f"{d_sim:.3g} m; the mapping drive on them vs the CPU's, max |dW| per sweep "
+        f"{dx_own.round(6).tolist()}")
+    return dx
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -1295,6 +1639,12 @@ def main():
     loc_steady, loc_seed = localization_phase(runs["split"]["state"].map, frame, ss_cfg, device)
     del runs
     reduced_dx = reduced_card_vs_cpu_phase(device)
+    pipe, pipe_run = pipeline_phase(sweeps, truth, device)
+    pipe_loc = pipeline_localization_phase(pipe.single_map_state(), truth, device)
+    del pipe
+    local_run = local_phase(sweeps, truth, device)
+    quick = quick_start_phase(device)
+    reduced_pipe_dx = reduced_pipeline_card_vs_cpu_phase(device)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -1318,19 +1668,28 @@ def main():
         if row["name"] in merges:
             # of the launches, the calls that split M and launched the merge kernel too
             row["merges"] = merges[row["name"]]
+        # the SlamPipeline drive of phase 13 (mapping with IMU, split route)
+        row["pipeline"] = dict(launches=pipe_run["launches"][row["name"]],
+                               merges=pipe_run["launches"]["merges"].get(row["name"], 0))
         if row["name"] in single_stream:
             # launches: the single-stream drive's on the split route
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
                                          merges=ss_launches["merges"][row["name"]])
                                     for v in single_stream[row["name"]]]
-    log(f"[13] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    log(f"[18] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
         + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
                     f"{v['stat']['odometry'][1]:.1f}, mapping {v['stat']['mapping'][0]:.1f} / "
                     f"{v['stat']['mapping'][1]:.1f}" for r, v in ss_stats.items())
         + f"; localization steady error {loc_steady:.4f} m (seed {loc_seed:.4f}); reduced "
-        f"card vs CPU {reduced_dx:.3g}; on {name} ({smi})")
+        f"card vs CPU {reduced_dx:.3g}; pipeline (mapping, IMU) ms per sweep best / median "
+        f"{min(pipe_run['ms']):.1f} / {float(np.median(pipe_run['ms'])):.1f}, final error "
+        f"{pipe_run['gt_err']:.4f} m; localization pipeline steady {pipe_loc['steady']:.4f} m "
+        f"(seed {pipe_loc['seed_err']:.4f}); local {local_run['gt_err']:.4f} m, ATE "
+        f"{local_run['ate']:.4f}; Quick start ATE mapping {quick['ate']:.4f} / odometry "
+        f"{quick['ate_odo']:.4f} m; reduced pipeline card vs CPU {reduced_pipe_dx}; "
+        f"on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

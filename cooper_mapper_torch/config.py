@@ -1,11 +1,8 @@
-"""Configuration dataclasses of the ported slices.
+"""Configuration dataclasses of the port.
 
-Field-for-field copies of ``RegistrationConfig``, ``OdometryConfig``,
-``ScanMatchConfig``, ``MapConfig`` and ``MatcherConfig`` in
-``cooper_mapper_tpu/config.py`` (tests/test_torch_config.py holds them
-together).  ``PipelineConfig`` carries only the fields the single-stream
-sweep (``models/fused.py``) reads; the UKF, keyframe, loop and pose-graph
-sections belong to slices not ported yet.  The port keeps its own
+Field-for-field copies of every configuration class in
+``cooper_mapper_tpu/config.py``, and of its per-sensor presets
+(tests/test_torch_config.py holds them together).  The port keeps its own
 copy because it must import nothing of the JAX package.
 ``OdometryConfig``'s ``nn_query_chunk``, ``kernel_backend``,
 ``nn_precision`` and ``unroll_iters`` and ``ScanMatchConfig.kernel_backend``
@@ -13,6 +10,10 @@ are carried for field parity only, and the solves raise unless they keep
 their defaults: the port's dispatch follows the tensors' device (a CUDA
 tensor launches the kernels, a CPU tensor runs their plain versions), its
 products are always full f32, and its GN loops are Python loops.
+``LoopConfig``, ``PoseGraphConfig``, ``KeyframeConfig``'s use by the graph
+and ``PipelineConfig.enable_graph`` belong to the pose-graph backend, which
+is not ported: ``models/pipeline.SlamPipeline`` raises on
+``enable_graph=True``.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ class MapConfig:
     corner_leaf: float = 0.2             # insertion re-voxelize leaves
     surf_leaf: float = 0.4
     margin_cubes: int = 3                # sensor kept >= 3 cubes from boundary
-    dedup_policy: str = "centroid"       # read by dedup_active, not ported yet
+    dedup_policy: str = "centroid"       # dedup_active: "centroid" or "anchor"
     surround_corner_capacity: int = 32768
     surround_surf_capacity: int = 65536
     # vertical-FOV active-area cull (DynamicFeatureMap.h:748-804); 0/0 disables
@@ -137,13 +138,141 @@ class MatcherConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class PipelineConfig:
-    """The fields of the JAX package's ``PipelineConfig`` that the
-    single-stream sweep reads, with the same defaults."""
+class UKFConfig:
+    """UKF fusion (ukf_pose_estimator.hpp:35-60, unscented_kalman_filter.hpp)."""
 
+    state_dim: int = 16    # [p(3), v(3), q(4), acc_bias(3), gyro_bias(3)]
+    input_dim: int = 6     # [acc(3), gyro(3)]
+    measure_dim: int = 10  # [p(3), v(3), q(4)]
+    lam: float = 1.0       # sigma-point lambda (:45)
+    # process noise scaling (pos/vel x10, quat x5, biases 1e-6)
+    process_noise_pos: float = 10.0 * 1e-3
+    process_noise_vel: float = 10.0 * 1e-3
+    process_noise_quat: float = 5.0 * 1e-3
+    process_noise_bias: float = 1e-6
+    measure_noise_pos: float = 0.01
+    measure_noise_vel: float = 0.1
+    measure_noise_quat: float = 0.001
+    cool_time_duration: float = 1.0   # predict cool-down (:70)
+    max_velocity: float = 30.0        # clamp before correct (LaserLocalization.cpp:158)
+    reset_jump: float = 5.0           # UKF reset when correction jumps > 5 m
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyframeConfig:
+    """Keyframe gating (keyframe_updater.hpp:12-48)."""
+
+    keyframe_delta_trans: float = 0.25
+    keyframe_delta_angle: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopConfig:
+    """Loop detection thresholds (loop_detector.hpp:57-63, 106-164)."""
+
+    distance_thresh: float = 5.0          # radius for trajectory NN
+    estimated_distance_thresh: float = 25.0
+    accum_distance_thresh: float = 30.0   # traveled-distance gap
+    min_loop_interval: float = 3.0        # distance since last loop
+    max_candidates: int = 6
+    candidate_cluster_dist: float = 5.0
+    # fine matching reuses ScanMatchConfig with scanMatchLocal leaves, plus
+    # Marquardt damping (ScanMatchConfig.lm_damping): the stacked
+    # multi-keyframe reference makes the undamped GN prone to a
+    # correspondence-flip limit cycle just above the convergence thresholds
+    # (measured: lam=1 converges in 7 iters to the cycle's center pose;
+    # lam=0 oscillates forever — BENCH.md round-5 notes)
+    fine_damping: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseGraphConfig:
+    """Pose-graph backend (graph.cpp, solver_g2o.cpp)."""
+
+    max_iterations: int = 50            # LM iterations (g2o budget is 1000)
+    max_nodes: int = 1024
+    max_edges: int = 2048
+    lm_init_lambda: float = 1e-4
+    lm_lambda_factor: float = 10.0
+    # hand-set information matrices (graph.cpp:281-291, 334-341)
+    seq_info_trans: Tuple[float, float, float] = (0.8, 0.4, 0.8)
+    seq_info_rot: Tuple[float, float, float] = (1.0, 2.0, 1.0)
+    loop_info: float = 2.0
+    # inner linear solver: "dense" (Cholesky/LU on the [6N,6N] system, best
+    # for small graphs) or "cg" (matrix-free block-Jacobi PCG over per-edge
+    # 6x6 blocks — O(E+N) memory, the scalable path for city-size graphs)
+    solver: str = "dense"
+    pcg_iters: int = 64                 # CG iterations for solver="cg"
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
     registration: RegistrationConfig = RegistrationConfig()
     odometry: OdometryConfig = OdometryConfig()
     scan_match: ScanMatchConfig = ScanMatchConfig()
     feature_map: MapConfig = MapConfig()
     matcher: MatcherConfig = MatcherConfig()
+    ukf: UKFConfig = UKFConfig()
+    keyframe: KeyframeConfig = KeyframeConfig()
+    loop: LoopConfig = LoopConfig()
+    pose_graph: PoseGraphConfig = PoseGraphConfig()
     mapping_stride: int = 2   # mapping every Nth sweep (rate decoupling)
+    # run the pose-graph backend in-loop: mapping outputs are gated into
+    # keyframes, loops are detected/optimized, and the odom->graph correction
+    # is applied to the reported trajectory (the Graph node riding the
+    # mapping output, graph.cpp:301-378)
+    enable_graph: bool = False
+
+
+# Per-sensor presets mirroring the launch-file parameter sets
+# (launch/node/lidar_mapping.launch, lidar_localization.launch).
+
+def vlp16() -> PipelineConfig:
+    return PipelineConfig(
+        registration=RegistrationConfig(n_rings=16, max_points_per_ring=2048),
+        odometry=OdometryConfig(n_rings=16),
+    )
+
+
+def hdl32() -> PipelineConfig:
+    return PipelineConfig(
+        registration=RegistrationConfig(n_rings=32, max_points_per_ring=2048),
+        odometry=OdometryConfig(n_rings=32),
+    )
+
+
+def hdl64() -> PipelineConfig:
+    return PipelineConfig(
+        registration=RegistrationConfig(n_rings=64, max_points_per_ring=2048),
+        odometry=OdometryConfig(n_rings=64),
+    )
+
+
+def pandar40() -> PipelineConfig:
+    return PipelineConfig(
+        registration=RegistrationConfig(n_rings=40, max_points_per_ring=2048),
+        odometry=OdometryConfig(n_rings=40),
+    )
+
+
+def tiny_test() -> PipelineConfig:
+    """Small capacities for fast CPU tests."""
+    return PipelineConfig(
+        registration=RegistrationConfig(
+            n_rings=8,
+            max_points_per_ring=256,
+            max_sharp=64,
+            max_less_sharp=256,
+            max_flat=128,
+            max_less_flat=1024,
+        ),
+        feature_map=MapConfig(
+            n_cubes=(7, 5, 7),
+            corner_cube_capacity=512,
+            surf_cube_capacity=1024,
+            surround_corner_capacity=2048,
+            surround_surf_capacity=4096,
+        ),
+        matcher=MatcherConfig(max_frame_corner=512, max_frame_surf=1024),
+        pose_graph=PoseGraphConfig(max_nodes=64, max_edges=128),
+    )

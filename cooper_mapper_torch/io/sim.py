@@ -146,3 +146,21 @@ def scan_sweep(world: PlaneWorld, pose_start, pose_end, n_rings: int = 16,
         pts_sensor = (pts_world - pose_start[:3, 3]) @ pose_start[:3, :3]
 
     return Sweep(xyz=pts_sensor.contiguous(), mask=hit, rel_time=rel_t.contiguous())
+
+
+def figure_eight_trajectory(n_poses: int, scale=8.0, height=1.5, period=60.0):
+    """Ground-truth trajectory: a smooth figure-eight inside the room.
+    Returns [n_poses, 4, 4] float32 sensor -> world poses (numpy, host side),
+    as the JAX package's simulator does."""
+    s = np.linspace(0, 2 * np.pi * 0.8, n_poses)
+    x = scale * np.sin(s)
+    z = scale * np.sin(s) * np.cos(s)
+    y = np.full_like(x, height)
+    yaw = np.arctan2(np.gradient(z), np.gradient(x))
+    poses = np.zeros((n_poses, 4, 4), np.float32)
+    for i in range(n_poses):
+        c, si = np.cos(yaw[i]), np.sin(yaw[i])
+        # rotation about y (up)
+        poses[i] = np.array([[c, 0, si, x[i]], [0, 1, 0, y[i]], [-si, 0, c, z[i]], [0, 0, 0, 1]],
+                            np.float32)
+    return poses

@@ -6,12 +6,13 @@ clouds, with world-to-cube indexing (worldToCube, FeatureMap.h:475-487),
 toroidal recentring (slot = world cube index mod the grid dims: the window
 origin moves and departing cubes are mask-cleared, no data moves;
 update/shift, :232-254), the active-area surround gather
-(getSurroundFeature, :256-352) and scatter insertion (addFeatureCloud,
-:219-230).
+(getSurroundFeature, :256-352), scatter insertion (addFeatureCloud,
+:219-230) and the voxel re-deduplication of the active cubes
+(downsizeValidCloud, :289-306).
 
 The JAX package's steps donate the map (``models/fused.py``) so XLA updates
-it in place; here ``add_feature_cloud`` and ``recenter`` write the state's
-tensors in place (``index_put_``, ``masked_fill_``) and return the same
+it in place; here ``add_feature_cloud``, ``recenter`` and ``dedup_active`` write
+the state's tensors in place (``index_put_``, ``masked_fill_``) and return the same
 object.  At the default ``MapConfig`` the map holds 4851 cubes x
 (4096 + 8192) slots, ~0.78 GB of xyz and masks on the card: a functional
 copy per insert or recenter would double that.
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
+from ..ops.voxel import divide, filter_sorted
 from ..utils import cloud as cloud_lib
 
 
@@ -95,7 +97,7 @@ def create(cfg: MapConfig, device="cuda") -> FeatureMapState:
 def world_to_cube(xyz, cfg: MapConfig):
     """World coords -> int32 world-cube indices: cube i covers
     [(i - 0.5) * size, (i + 0.5) * size) (FeatureMap.h:475-487)."""
-    return torch.floor(xyz / cfg.cube_size + 0.5).to(torch.int32)
+    return torch.floor(divide(xyz, cfg.cube_size) + 0.5).to(torch.int32)
 
 
 def _grid_index(cube_idx, origin, cfg: MapConfig):
@@ -265,3 +267,52 @@ def get_surround(state: FeatureMapState, sensor_pos, cfg: MapConfig):
 
     return (gather(state.corner, cfg.surround_corner_capacity),
             gather(state.surf, cfg.surround_surf_capacity))
+
+
+def _dedup_cubes(cc: CubeCloud, flat, ok, leaf: float, keep_first: bool, nc: int):
+    """Voxel-filter the cubes ``flat`` [A] (where ``ok``) in one pass and
+    write them back in place.  The cube's position in ``flat`` leads the sort
+    keys, so each cube comes out as its own filter would give it; the
+    cubes' rows are then compacted, valid points first, by one more stable
+    sort.  Rows of cubes that are not ``ok`` all point at the guard row and
+    carry invalid FAR points, so the duplicate writes there agree."""
+    cap = cc.capacity
+    A = flat.shape[0]
+    dev = flat.device
+    slot = torch.arange(cap, device=dev)
+    rows = torch.where(ok[:, None], flat[:, None] * cap + slot, nc * cap).reshape(-1)
+    cube = torch.arange(A, device=dev).repeat_interleave(cap)
+    xyz = cc.rows[rows]
+    mask = cc.row_mask[rows] & ok[cube]
+    order, out_xyz, out_mask = filter_sorted(xyz, mask, leaf, keep_first, group=cube)
+    # groups come out in ascending order, cap rows each: a stable sort by
+    # (cube, invalid) packs each cube's points to the front of its own rows
+    packed = torch.argsort(cube[order] * 2 + (~out_mask).to(torch.int64), stable=True)
+    cc.rows.index_put_((rows,), out_xyz[packed])
+    cc.row_mask.index_put_((rows,), out_mask[packed])
+    cc.count.copy_(cc.mask.sum(-1, dtype=torch.int32))
+    return cc
+
+
+def dedup_active(state: FeatureMapState, sensor_pos, cfg: MapConfig) -> FeatureMapState:
+    """Voxel re-deduplicate the cubes around the sensor (downsizeValidCloud,
+    FeatureMap.h:289-306 / DynamicFeatureMap.h:718-735), in place.
+
+    ``cfg.dedup_policy == "anchor"`` keeps each voxel's oldest point instead
+    of its centroid: inserts append behind existing points, and both the
+    voxel sort and the compaction are stable, so every pass keeps the first
+    observation of each voxel.  "centroid" is the reference's
+    pcl::VoxelGrid semantics.
+
+    The JAX package maps the voxel filter over the active cubes; here every
+    active cube of a feature class goes through one sort (``_dedup_cubes``),
+    not a filter per cube.
+    """
+    nx, ny, nz = cfg.n_cubes
+    nc = nx * ny * nz
+    flat, ok = _active_cube_slots(state, sensor_pos, cfg)
+    flat = torch.where(ok, flat, nc).long()
+    keep_first = cfg.dedup_policy == "anchor"
+    _dedup_cubes(state.corner, flat, ok, cfg.corner_leaf, keep_first, nc)
+    _dedup_cubes(state.surf, flat, ok, cfg.surf_leaf, keep_first, nc)
+    return state

@@ -7,11 +7,8 @@ correction onto fresh odometry (LaserMatcher.cpp:333-340), the frame is
 voxel-downsampled, the scan-to-map solve runs against the cube map's
 surround, and the mapping step inserts the registered frame into the map.
 The merged high-rate pose is ``W_last @ inv(L_last) @ L_now``, computed on
-demand.  The map is updated in place (``maps/feature_map.py``); the
-localization step never writes it.
-
-The sliding-window ``mapping_local_step`` (``maps/local_map.py``) is not
-ported yet.
+demand.  The map is updated in place (``maps/feature_map.py``,
+``maps/local_map.py``); the localization step never writes it.
 """
 
 from __future__ import annotations
@@ -22,6 +19,7 @@ import torch
 
 from ..config import MapConfig, MatcherConfig, ScanMatchConfig
 from ..maps import feature_map as fm
+from ..maps import local_map as lm
 from ..ops import scan_match as sm
 from ..ops.voxel import voxel_downsample
 from ..utils import cloud as cloud_lib
@@ -106,13 +104,38 @@ def _commit(res, T_guess, map_state, corner_ds, surf_ds, map_cfg, matcher_cfg):
     merge guess for a rejected solve (LaserLocalization.cpp:140-166) and
     inserts the frame at that guess.
     """
-    if matcher_cfg.commit_rejected_solves:
-        W_new = twist.to_mat(res.x)
-    else:
-        W_new = torch.where(res.success, twist.to_mat(res.x), T_guess)
+    W_new = _committed_pose(res, T_guess, matcher_cfg)
     map_state = fm.add_feature_cloud(map_state, _to_world(corner_ds, W_new),
                                      _to_world(surf_ds, W_new), map_cfg)
     return W_new, map_state
+
+
+def _committed_pose(res, T_guess, matcher_cfg):
+    if matcher_cfg.commit_rejected_solves:
+        return twist.to_mat(res.x)
+    return torch.where(res.success, twist.to_mat(res.x), T_guess)
+
+
+def mapping_local_step(matcher: MatcherState, map_state: lm.LocalMapState, corner: Cloud,
+                       surf: Cloud, L_now, sm_cfg: ScanMatchConfig, matcher_cfg: MatcherConfig,
+                       surround_corner: int = 8192, surround_surf: int = 16384):
+    """LaserMappingLocal step against the sliding-window map
+    (LaserMappingLocal.cpp:55-77): surround, solve, then the frame enters
+    the window at the committed pose (the dead-reckoned guess where the gate
+    rejected the solve, as in ``mapping_step``).  ``map_state`` is updated
+    in place.  Returns (matcher', map_state, MappingOutput)."""
+    T_guess = se3.transform_associate(matcher.L_last, L_now, matcher.W_last)
+    corner_ds, surf_ds = prepare_frame(corner, surf, matcher_cfg)
+    ref_corner, ref_surf = lm.get_surround(map_state, surround_corner, surround_surf,
+                                           matcher_cfg.corner_leaf, matcher_cfg.surf_leaf)
+
+    res = sm.scan_match(corner_ds, surf_ds, ref_corner, ref_surf, twist.from_mat(T_guess),
+                        sm_cfg)
+    W_new = _committed_pose(res, T_guess, matcher_cfg)
+    map_state = lm.add_frame(map_state, _to_world(corner_ds, W_new), _to_world(surf_ds, W_new),
+                             W_new)
+    return (MatcherState(L_last=L_now, W_last=W_new), map_state,
+            MappingOutput(W=W_new, result=res, corner_ds=corner_ds, surf_ds=surf_ds))
 
 
 def localization_step(matcher: MatcherState, map_state: fm.FeatureMapState, corner: Cloud,

@@ -40,6 +40,28 @@ def make(xyz, mask, ring=None, rel_time=None) -> Cloud:
     return Cloud(xyz, mask, ring, rel_time)
 
 
+def from_points(xyz, capacity: int | None = None, ring=None, rel_time=None,
+                device="cuda") -> Cloud:
+    """A Cloud from a dense [n, 3] array (numpy or tensor), padded with
+    invalid FAR points to ``capacity``."""
+    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    n = xyz.shape[0]
+    cap = capacity or n
+    pad = cap - n
+    if pad < 0:
+        raise ValueError(f"capacity {cap} < number of points {n}")
+    mask = torch.cat([torch.ones(n, dtype=torch.bool, device=device),
+                      torch.zeros(pad, dtype=torch.bool, device=device)])
+    xyz = torch.cat([xyz, torch.full((pad, 3), FAR, dtype=torch.float32, device=device)])
+    if ring is not None:
+        ring = torch.cat([torch.as_tensor(ring, dtype=torch.int32, device=device),
+                          torch.zeros(pad, dtype=torch.int32, device=device)])
+    if rel_time is not None:
+        rel_time = torch.cat([torch.as_tensor(rel_time, dtype=torch.float32, device=device),
+                              torch.zeros(pad, dtype=torch.float32, device=device)])
+    return make(xyz, mask, ring, rel_time)
+
+
 def empty(capacity: int, device=None) -> Cloud:
     return make(torch.full((capacity, 3), FAR, dtype=torch.float32, device=device),
                 torch.zeros(capacity, dtype=torch.bool, device=device))

@@ -1,5 +1,6 @@
-"""SE(3) / Euler-convention math: the part of ``cooper_mapper_tpu/utils/se3.py``
-that the twist warps, the simulator and the odometry and mapping stages use.
+"""SE(3) / Euler-convention and quaternion math: the part of
+``cooper_mapper_tpu/utils/se3.py`` that the twist warps, the simulator, the
+odometry and mapping stages, the IMU de-warp and the UKF fusion use.
 
 Conventions are the JAX package's: ``TZYX`` poses ``p' = Rz Ry Rx p + t``,
 Euler 6-vectors ``[rx, ry, rz, tx, ty, tz]``, twists ``[v, w]`` (translation
@@ -58,6 +59,19 @@ def make_mat(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
+def rotate_zxy(p, az, ax, ay):
+    """Rotate points p (..., 3) about z by az, then x by ax, then y by ay:
+    p' = Ry(ay) @ Rx(ax) @ Rz(az) @ p (rotateZXY, math_utils.h:184-205)."""
+    R = rot_y(ay) @ rot_x(ax) @ rot_z(az)
+    return (R @ p[..., None])[..., 0]
+
+
+def rotate_yxz(p, ay, ax, az):
+    """p' = Rz(az) @ Rx(ax) @ Ry(ay) @ p (rotateYXZ, math_utils.h:215-236)."""
+    R = rot_z(az) @ rot_x(ax) @ rot_y(ay)
+    return (R @ p[..., None])[..., 0]
+
+
 def euler6_to_mat(x):
     """[..., 6] (rx,ry,rz,tx,ty,tz) -> [..., 4, 4] with R = Rz Ry Rx."""
     R = euler_zyx_to_rot(x[..., 0], x[..., 1], x[..., 2])
@@ -91,6 +105,52 @@ def transform_associate(L_old, L_new, W_old):
     """W_new = (W_old @ L_old^-1) @ L_new  (transform_utils.h:502-507):
     chains the mapping correction onto fresh odometry."""
     return W_old @ inverse(L_old) @ L_new
+
+
+# Quaternions (w, x, y, z): the UKF and fusion layer.
+
+def quat_multiply(q1, q2):
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], -1)
+
+
+def quat_normalize(q, eps=1e-12):
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=eps)
+
+
+def quat_to_rot(q):
+    w, x, y, z = quat_normalize(q).unbind(-1)
+    return _stack_rows([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def rot_to_quat(R):
+    """Rotation matrix -> quaternion (w, x, y, z) with w >= 0: the best
+    conditioned of four constructions, chosen without a branch."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = torch.stack([
+        torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], -1),
+    ], -2)                                                     # (..., 4, 4)
+    scores = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], -1)
+    idx = torch.argmax(scores, dim=-1)          # the first maximum, as jnp.argmax
+    q = torch.gather(cands, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    q = q * torch.sign(q[..., :1] + 1e-30)       # w >= 0
+    return quat_normalize(q)
 
 
 def skew(v):

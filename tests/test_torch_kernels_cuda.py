@@ -592,3 +592,119 @@ def test_merge_min_counts_the_split_races_merges(cuda, race):
             races._nn1_masked_cuda(q, ring_a, ia, xyz, ring, mask, race, SPAN,
                                    plan=_plan(2000, S))
         assert races.merge_min.launches == before + (S > 1)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline slice on the card: the cube map's dedup, the UKF, the entry point
+# ---------------------------------------------------------------------------
+
+
+def _dedup_map(device, policy):
+    """A small cube map after four inserts of lattice clouds (many points per
+    voxel, cubes straddled), built the same way on ``device``."""
+    from cooper_mapper_torch.config import MapConfig
+    from cooper_mapper_torch.maps import feature_map as fm
+    from cooper_mapper_torch.utils import cloud
+
+    cfg = MapConfig(n_cubes=(5, 3, 5), cube_size=10.0, valid_distance=20.0,
+                    corner_cube_capacity=256, surf_cube_capacity=512, margin_cubes=1,
+                    dedup_policy=policy)
+    rng = np.random.RandomState(1)
+    st = fm.create(cfg, device)
+    for _ in range(4):
+        clouds = []
+        for n in (700, 1400):
+            xyz = np.round(rng.uniform(-12, 12, (n, 3)) / 0.15) * 0.15
+            clouds.append(cloud.make(torch.from_numpy(xyz.astype(np.float32)).to(device),
+                                     torch.from_numpy(rng.rand(n) < 0.9).to(device)))
+        fm.add_feature_cloud(st, clouds[0], clouds[1], cfg)
+    return st, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["centroid", "anchor"])
+def test_dedup_active_on_card_equals_cpu_and_repeats(cuda, policy):
+    from cooper_mapper_torch.maps import feature_map as fm
+
+    pos = torch.tensor([3.0, 1.0, -2.0])
+    st_cpu, cfg = _dedup_map("cpu", policy)
+    fm.dedup_active(st_cpu, pos, cfg)
+    runs = []
+    for _ in range(2):
+        st, _ = _dedup_map(cuda, policy)
+        runs.append(fm.dedup_active(st, pos.to(cuda), cfg))
+    for st in runs:
+        for cc, ref in ((st.corner, st_cpu.corner), (st.surf, st_cpu.surf)):
+            assert torch.equal(cc.count.cpu(), ref.count)
+            assert torch.equal(cc.row_mask.cpu()[:-1], ref.row_mask[:-1])
+            assert torch.equal(cc.xyz.cpu(), ref.xyz)
+
+
+@pytest.mark.cuda
+def test_ukf_on_card_equals_cpu(cuda):
+    from cooper_mapper_torch.config import UKFConfig
+    from cooper_mapper_torch.fusion import imu_queue, ukf_estimator
+    from cooper_mapper_torch.ops import ukf
+
+    cfg = UKFConfig(cool_time_duration=0.0)
+    rng = np.random.RandomState(2)
+    # _safe_cholesky on a matrix that is not positive definite takes the
+    # 1e-4 jitter on both devices
+    Q, _ = np.linalg.qr(rng.randn(16, 16))
+    bad = torch.from_numpy((Q @ np.diag(np.r_[np.linspace(0.01, 1, 15), -1e-5]) @ Q.T)
+                           .astype(np.float32))
+    L_cpu, L_card = ukf._safe_cholesky(bad), ukf._safe_cholesky(bad.to(cuda)).cpu()
+    assert torch.isfinite(L_card).all()
+    assert torch.allclose(L_card, L_cpu, rtol=0, atol=1e-5)
+
+    stamps = torch.arange(1, 11, dtype=torch.float32) * 0.01
+    acc = torch.from_numpy(rng.randn(10, 3).astype(np.float32))
+    gyro = torch.from_numpy(rng.randn(10, 3).astype(np.float32) * 0.5)
+    out = {}
+    for dev in ("cpu", cuda):
+        st = ukf_estimator.create(cfg, pos=torch.tensor([1.0, 2.0, 3.0]), device=dev)
+        batch = imu_queue.ImuBatch(stamps.to(dev), acc.to(dev), gyro.to(dev),
+                                   torch.ones(10, dtype=torch.bool, device=dev))
+        st = imu_queue.replay_predict(st, batch, 0.0, 0.1, cfg)
+        T = torch.eye(4, device=dev)
+        T[:3, 3] = torch.tensor([1.1, 2.0, 3.05], device=dev)
+        st = imu_queue.correct_from_lidar(st, T, torch.tensor([0.5, 0.0, 0.0], device=dev),
+                                          torch.eye(4, device=dev), cfg)
+        out[str(dev)] = st
+    c, g = out["cpu"], out[str(cuda)]
+    assert torch.allclose(g.ukf.mean.cpu(), c.ukf.mean, rtol=0, atol=1e-5)
+    assert torch.allclose(g.ukf.cov.cpu(), c.ukf.cov, rtol=0,
+                          atol=1e-5 * float(c.ukf.cov.abs().max()))
+
+
+@pytest.mark.cuda
+def test_slam_pipeline_builds_its_state_on_the_card(cuda):
+    from cooper_mapper_torch.config import MapConfig, PipelineConfig
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    cfg = PipelineConfig(feature_map=MapConfig(n_cubes=(5, 3, 5)))
+    for mode in ("mapping", "local"):
+        pipe = SlamPipeline(cfg, mode)                      # the default device
+        assert pipe.device.type == "cuda"
+        tensors = [pipe.odo.T_sum, pipe.matcher.W_last, pipe.ukf.ukf.mean, pipe.T_li]
+        tensors += ([pipe.map_state.surf.rows, pipe.map_state.origin] if mode == "mapping"
+                    else [pipe.map_state.surf_xyz, pipe.map_state.head])
+        assert all(t.is_cuda for t in tensors)
+
+
+@pytest.mark.cuda
+def test_voxel_and_cube_cells_on_card_equal_cpu_on_cell_boundaries(cuda):
+    # lattice points sit exactly on voxel and cube boundaries (4.2 m on a
+    # 0.2 m leaf, 15 m on 10 m cubes); the card must floor them into the
+    # CPU's cells, so the division cannot be a product with a reciprocal
+    from cooper_mapper_torch.config import MapConfig
+    from cooper_mapper_torch.maps.feature_map import world_to_cube
+    from cooper_mapper_torch.ops.voxel import voxel_coords
+
+    rng = np.random.RandomState(3)
+    xyz = torch.from_numpy((np.round(rng.uniform(-30, 30, (200000, 3)) / 0.15) * 0.15)
+                           .astype(np.float32))
+    for leaf in (0.2, 0.4):
+        assert torch.equal(voxel_coords(xyz.to(cuda), leaf).cpu(), voxel_coords(xyz, leaf))
+    cfg = MapConfig(cube_size=10.0)
+    assert torch.equal(world_to_cube(xyz.to(cuda), cfg).cpu(), world_to_cube(xyz, cfg))
