@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Four paths run, each through the entry points a user calls.
+Five paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -30,6 +30,15 @@ Pipeline: the system's own entry point, ``models/pipeline.SlamPipeline``, over
 the single-stream sweeps in its three modes ("mapping" with IMU / UKF fusion
 and the in-loop cube-map dedup, "local", "localization"), then README.md's
 Quick start (a 49-sweep figure eight) on the card.
+
+Pose graph: the LM solve of ``ops/pose_graph`` on the 1024-node
+loop-closure graph of ``benchmarks/bench_pose_graph.py`` (dense Cholesky and
+block-Jacobi CG, the default ``PoseGraphConfig``) and CG at 4096 nodes; then
+``SlamPipeline(enable_graph=True)`` over the loop drive of
+tests/test_graph_pipeline.py at full width (52 noisy VLP-16 sweeps of a
+5 m circle): keyframes, loop candidates, ICP on the nn1 kernel, the damped
+fine match on the k-NN kernel, loop edges and the LM; then
+``GraphSlam.save`` and the saved map reloaded.
 
 Phases, each announced on its own line as it starts:
 
@@ -122,7 +131,47 @@ Phases, each announced on its own line as it starts:
    merged pose within 2e-3; ``dedup_active`` of the card's map on the card,
    again, and on the CPU: bit-identical; then, printed only, the mapping
    drive on the card's own simulated sweeps against the CPU's;
-18. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+18. the pose-graph LM on build_graph(1024) of benchmarks/bench_pose_graph.py
+   (1023 odometry edges, 10 loop edges, max_edges 2048), ``solver="dense"``
+   at the default 50 iterations and ``"cg"`` at 64 CG iterations, then CG on
+   build_graph(4096): the final cost finite and below 0.2 of the initial one,
+   a repeat bit-identical, node 0 unchanged; ms per optimize and LM
+   iterations/s (best and median of 5), the dense-vs-CG position
+   difference, the peak memory;
+19. the pose-graph LM on build_graph(64, loop_every=16), dense and CG, on
+   the card and the CPU: poses within 2e-3 and the same final lambda (where
+   the lambdas differ, the LM iteration at which the accept sequences part
+   is printed, and the phase fails);
+20. ``SlamPipeline(enable_graph=True)`` over the loop drive of
+   tests/test_graph_pipeline.py at full width (make_room_world(size=(30, 4,
+   40), n_pillars=8, seed=3), a 5 m circle closing after 48 sweeps, 52
+   sweeps of 16 x 1024, noise 0.03 m from a torch.Generator) at the default
+   config but for _cfg's loop gates (3.0 / 9.0 / 12.0 / 2.0) and its
+   score_threshold of 50 (the default 800 is out of reach on this drive:
+   each map solve's score and frame size are printed):
+   TestGraphInTheLoop's gates (a loop joining keyframes more than 8 apart;
+   the graph's keyframe ATE below the mapping poses' and below 0.25 m;
+   a graph pose on every result after the first; the corrected trajectory
+   applies a correction; the end pose within the merged one's + 0.05 m; the
+   graph counters in stats()); the nn1 and k-NN kernels launched inside the
+   graph stage; the StageTimer report, the optimize calls' ms, the loop
+   fine matches' scores, ms per sweep;
+21. at the drive's first loop: ICP on the card against the CPU (T within
+   1e-4, inliers equal); nn1 against nn1_plain at the ICP shape (the
+   keyframe's 8192 surf slots against a 6-keyframe stack) and the k-NN
+   against knn_plain at the fine match's voxel-filtered shape, bit for
+   bit, with their plans, times and bounds;
+22. ``GraphSlam.save`` into a temporary directory: after.g2o holds the
+   estimates within 1e-5 and the edges' information exactly; the saved map,
+   loaded by ``load_feature_map`` in "localization" mode, localizes the
+   drive's last sweep within 0.3 m;
+23. the graph pipeline on the card against the CPU at phase 17's reduced
+   configuration (dedup after every map solve) with
+   tests/test_torch_graph_pipeline.py's loop gates on the same sweeps (7 of
+   ``_simulate``, simulated on the CPU): the same keyframe and loop flags
+   and loops, graph estimates and graph poses within 2e-3, with every map
+   solve's score and match fraction printed;
+24. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
@@ -132,7 +181,9 @@ Phases, each announced on its own line as it starts:
    shapes under ``more_shapes``; the merge_min row's launches are the split
    route's drive's, at S = 66 of 1024 queries with S = 32 under
    ``more_shapes``; every row's ``pipeline`` holds its launches and merges in
-   phase 13's drive), then the result line.
+   phase 13's drive, and its ``graph`` those inside the graph stage of phase
+   20's drive; nn1's ICP shape and the k-NN's fine-match shape of phase 21
+   are under their ``more_shapes``), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -142,6 +193,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -177,6 +229,11 @@ HBM_BYTES_PER_S = 3.35e12
 # the bound below is the function's, not the design's.
 OPS_PER_PAIR = {"nn1": 9, "nn1_masked": 12, "bc_races": 14, "knn": 9,
                 "fused_races": 15, "fused_races_corner": 13}
+# The pairs a search needs are every query against each VALID reference
+# point: a padded slot only has its mask read (1 byte), never its xyz (12
+# bytes) or ring (4).  The clouds are padded to capacity (the loop's stacked
+# keyframes are ~95% padding), so counting every slot would overstate the
+# work, and so loosen the bound, by that much.
 # Scan-to-map path: benchmarks/bench_scan_match.py's problem and batch
 SM_BATCH, SM_WORLD_SEED, SM_MAP_SWEEPS, KNN_K = 64, 7, 6, 5
 # Single stream: benchmarks/bench_realtime.py's drive and LOAM's budgets
@@ -355,8 +412,16 @@ def compare_race(label, kernel_out, plain_out):
     return float(err.max())
 
 
-def race_bytes(B, Q, M, n_out, with_ring):
-    inputs = B * Q * 12 + M * 16 + (M * 4 + B * Q * 8 if with_ring else 0)
+def ref_counts(B, mask):
+    """(slots, valid points) of a reference mask, [M] shared by the B
+    problems or [B, M]; and the valid (query-problem, reference) pairs per
+    query."""
+    valid = int(mask.sum())
+    return mask.numel(), valid, valid * (B if mask.dim() == 1 else 1)
+
+
+def race_bytes(B, Q, slots, valid, n_out, with_ring):
+    inputs = B * Q * 12 + slots + valid * 12 + (valid * 4 + B * Q * 8 if with_ring else 0)
     return inputs + n_out * B * Q * 8
 
 
@@ -474,14 +539,15 @@ def race_times(name, q, ref, err, ra=None, ia=None, span=2.5):
     ms = time_ms(kern, reps=20)
     plain_ms = time_ms(plain, reps=3, warmup=1)
     library_ms = time_ms(lib, reps=3, warmup=1)
-    pairs = Bq * Q * M
+    slots, valid, per_query = ref_counts(Bq, ref.mask)
+    pairs = Q * per_query
     t_ops = pairs * OPS_PER_PAIR[name] / FP32_PEAK_OPS * 1e3
-    t_bytes = race_bytes(Bq, Q, M, n_out, with_ring) / HBM_BYTES_PER_S * 1e3
-    row = dict(shape=f"{Bq}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+    t_bytes = race_bytes(Bq, Q, slots, valid, n_out, with_ring) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{Bq}x{Q} vs {M}", valid_ref=valid, pairs=pairs, err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"    {name} [{Bq}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+    log(f"    {name} [{Bq}x{Q} vs {M}, {valid} valid, {pairs:.3g} valid pairs]: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
@@ -683,14 +749,15 @@ def knn_times(tag, q, ref, err):
     plain_ms = time_ms(lambda: knn.knn_plain(q, ref.xyz, ref.mask, KNN_K), reps=3, warmup=1)
     library_ms = time_ms(lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big)
                          .topk(KNN_K, largest=False), reps=3, warmup=1)
-    pairs = B * Q * M
+    slots, valid, per_query = ref_counts(B, ref.mask)
+    pairs = Q * per_query
     t_ops = pairs * OPS_PER_PAIR["knn"] / FP32_PEAK_OPS * 1e3
-    t_bytes = (B * Q * 12 + M * 16 + B * Q * KNN_K * 8) / HBM_BYTES_PER_S * 1e3
-    row = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+    t_bytes = (B * Q * 12 + slots + valid * 12 + B * Q * KNN_K * 8) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{B}x{Q} vs {M}", valid_ref=valid, pairs=pairs, err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"    knn {tag} [{B}x{Q} vs {M}, {pairs:.3g} pairs]: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+    log(f"    knn {tag} [{B}x{Q} vs {M}, {valid} valid, {pairs:.3g} valid pairs]: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
@@ -755,10 +822,11 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     return launches, merges, B / best, B / med
 
 
-def fused_bytes(B, Q, M, n_races):
-    """Bytes the fused search must move: queries, the reference (xyz, mask,
-    ring), one (index, distance) pair per race and query."""
-    return B * Q * 12 + M * 17 + n_races * B * Q * 8
+def fused_bytes(B, Q, slots, valid, n_races):
+    """Bytes the fused search must move: queries, the reference (every
+    mask; xyz and ring of the valid points), one (index, distance) pair per
+    race and query."""
+    return B * Q * 12 + slots + valid * 16 + n_races * B * Q * 8
 
 
 def compare_exact(label, got, want, where=None):
@@ -865,20 +933,21 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         ms = time_ms(lambda: races.fused_races(*args), reps=20)
         plain_ms = time_ms(lambda: races.fused_races_plain(*args), reps=3, warmup=1)
         library_ms = time_ms(lib, reps=3, warmup=1)
-        pairs = B * Q * M
+        slots, valid, per_query = ref_counts(B, ref.mask)
+        pairs = Q * per_query
         t_ops = pairs * OPS_PER_PAIR["fused_races" if with_same else "fused_races_corner"] \
             / FP32_PEAK_OPS * 1e3
-        t_bytes = fused_bytes(B, Q, M, 3 if with_same else 2) / HBM_BYTES_PER_S * 1e3
+        t_bytes = fused_bytes(B, Q, slots, valid, 3 if with_same else 2) / HBM_BYTES_PER_S * 1e3
         G, qpt = races._fused_plan(B, Q, races.sm_count(dev))
-        row = dict(shape=f"{B}x{Q} vs {M}", pairs=pairs, err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+        row = dict(shape=f"{B}x{Q} vs {M}", valid_ref=valid, pairs=pairs, err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes", plan=[G, qpt],
                    device_ms=dev_ms, device_ms_all_kernels=dev_all,
                    split_route_device_ms=split_ms, split_route_device_ms_all_kernels=split_all,
                    split_route_device_ms_by_kernel=split_by)
         out[label] = row
-        log(f"    fused_races {label} [{row['shape']}, {pairs:.3g} pairs, G={G} lanes per "
-            f"query, {qpt} per thread, blocks {-(-Q // (128 // G * qpt)) * B}]: kernel "
+        log(f"    fused_races {label} [{row['shape']}, {valid} valid, {pairs:.3g} valid pairs, "
+            f"G={G} lanes per query, {qpt} per thread, blocks {-(-Q // (128 // G * qpt)) * B}]: kernel "
             f"{ms:.4f} ms (device {dev_ms:.4f}; every kernel of the call {dev_all:.4f}), "
             f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the split route's device ms "
@@ -1577,12 +1646,471 @@ def reduced_pipeline_card_vs_cpu_phase(device):
     return dx
 
 
+# Pose-graph backend: benchmarks/bench_pose_graph.py's problem, the loop drive
+# of tests/test_graph_pipeline.py at full width
+PG_NODES, PG_BIG_NODES, PG_PCG_ITERS, PG_REPS = 1024, 4096, 64, 5
+PG_COST_RATIO = 0.2          # tests/test_pose_graph.py::test_cg_scales_to_large_graph
+LOOP_SWEEPS, LOOP_NOISE, LOOP_SEED = 52, 0.03, 7
+# tests/test_graph_pipeline.py::_cfg's score_threshold.  The score sums one
+# term of at most 1 per frame feature, and with 0.03 m of noise at full width
+# the voxel-filtered frames carry ~400-600 features, so the default 800 is
+# out of reach (the JAX package scores these sweeps the same:
+# tests/test_torch_loop_drive.py)
+LOOP_SCORE = 50.0
+GRAPH_ATE_MAX, END_SLACK = 0.25, 0.05   # tests/test_graph_pipeline.py::TestGraphInTheLoop
+SAVE_LOC_TOL = 0.3
+
+
+def pose_graph_problem(n, solver, device, loop_every=100, **changes):
+    """(graph on ``device``, PoseGraphConfig) of ``sim.drifted_ring_graph(n)``
+    (benchmarks/bench_pose_graph.build_graph) at
+    max_nodes = n, max_edges = 2 n, PG_PCG_ITERS CG iterations."""
+    from cooper_mapper_torch.config import PoseGraphConfig
+    from cooper_mapper_torch.io import sim
+    from cooper_mapper_torch.ops import pose_graph as pg
+
+    cfg = PoseGraphConfig(max_nodes=n, max_edges=2 * n, solver=solver, pcg_iters=PG_PCG_ITERS,
+                          **changes)
+    return pg.from_arrays(*sim.drifted_ring_graph(n, loop_every=loop_every), max_nodes=n,
+                          max_edges=2 * n, device=device), cfg
+
+
+def pose_graph_lm(n, solver, device):
+    """``optimize`` on build_graph(n) at the default 50 LM iterations: the
+    gates (final cost finite and below PG_COST_RATIO of the initial one, a
+    repeat bit-identical, node 0 unchanged), then ms per optimize and LM
+    iterations/s (max_iterations over the wall time of one optimize, host
+    clock around torch.cuda.synchronize()), best and median of PG_REPS."""
+    from cooper_mapper_torch.ops import pose_graph as pg
+
+    g, cfg = pose_graph_problem(n, solver, device)
+    torch.cuda.reset_peak_memory_stats()
+    out, diag = pg.optimize(g, cfg)
+    again, _ = pg.optimize(g, cfg)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    c0, c1, lam = (float(diag[k]) for k in ("initial_cost", "final_cost", "lambda"))
+    repeat = torch.equal(out.poses, again.poses)
+    node0 = torch.equal(out.poses[0], g.poses[0])
+    ms = []
+    for _ in range(PG_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pg.optimize(g, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    its = sorted(cfg.max_iterations / (m / 1e3) for m in ms)
+    ratio = c1 / c0
+    log(f"    {solver} n={n} (max_edges {2 * n}, {cfg.max_iterations} LM iterations"
+        + (f", {cfg.pcg_iters} CG iterations" if solver == "cg" else
+           f", [{6 * n}, {6 * n}] f32 system") + f"): cost {c0:.6g} -> {c1:.6g} (ratio "
+        f"{ratio:.4g}, gate < {PG_COST_RATIO}), lambda {lam:.3g}; repeat bit-identical "
+        f"{repeat}; node 0 unchanged {node0}; peak {peak_mb:.1f} MiB; ms per optimize "
+        f"{ms_stat(ms)}; LM iterations/s best {its[-1]:.2f}, median "
+        f"{float(np.median(its)):.2f}")
+    if not (np.isfinite(c1) and ratio < PG_COST_RATIO):
+        fail(f"pose graph {solver} n={n}: final cost {c1} not below {PG_COST_RATIO} x {c0}")
+    if not repeat:
+        fail(f"pose graph {solver} n={n}: a repeat gave other poses")
+    if not node0:
+        fail(f"pose graph {solver} n={n}: the gauge node moved")
+    return dict(n=n, solver=solver, ms=ms, iters_per_s=(its[-1], float(np.median(its))),
+                cost=(c0, c1), peak_mib=peak_mb), out.poses
+
+
+def pose_graph_phase(device):
+    log(f"[18] pose-graph LM: benchmarks/bench_pose_graph.build_graph({PG_NODES}) ({PG_NODES - 1} "
+        f"odometry edges, {(PG_NODES - 1) // 100} loop edges), dense and CG (pcg_iters="
+        f"{PG_PCG_ITERS}); CG at {PG_BIG_NODES} nodes")
+    dense, p_dense = pose_graph_lm(PG_NODES, "dense", device)
+    cg, p_cg = pose_graph_lm(PG_NODES, "cg", device)
+    dpos = float((p_dense[:, :3, 3] - p_cg[:, :3, 3]).norm(dim=-1).max())
+    log(f"    dense vs CG at n={PG_NODES}: max position difference {dpos:.4g} m")
+    big, _ = pose_graph_lm(PG_BIG_NODES, "cg", device)
+    return dict(dense=dense, cg=cg, cg_big=big, dense_vs_cg_m=dpos)
+
+
+def pose_graph_card_vs_cpu_phase(device):
+    """A 64-node ring (build_graph(64, loop_every=16)), dense and CG, on the
+    card and the CPU: poses within CPU_TOL and the same final lambda.  Where
+    the lambdas differ, the first LM iteration at which they do is found and
+    printed (a candidate accepted on one device and not on the other)."""
+    from cooper_mapper_torch.ops import pose_graph as pg
+
+    log("[19] pose-graph LM card vs CPU: build_graph(64, loop_every=16), dense and CG")
+    out = {}
+    for solver in ("dense", "cg"):
+        runs = {}
+        for dev in (device, "cpu"):
+            g, cfg = pose_graph_problem(64, solver, dev, loop_every=16)
+            runs[dev] = pg.optimize(g, cfg)
+        dx = float((runs[device][0].poses.cpu() - runs["cpu"][0].poses).abs().max())
+        lams = [float(runs[d][1]["lambda"]) for d in (device, "cpu")]
+        costs = [float(runs[d][1]["final_cost"]) for d in (device, "cpu")]
+        log(f"    {solver}: max |dT| {dx:.3g} (tolerance {CPU_TOL}); final lambda card / CPU "
+            f"{lams}; final cost {costs}")
+        if lams[0] != lams[1]:
+            for k in range(1, cfg.max_iterations + 1):
+                lk = [float(pg.optimize(*pose_graph_problem(64, solver, d, loop_every=16,
+                                                            max_iterations=k))[1]["lambda"])
+                      for d in (device, "cpu")]
+                if lk[0] != lk[1]:
+                    log(f"    the accept sequences part at LM iteration {k}: lambda {lk}")
+                    break
+            fail(f"pose graph {solver}: the card and the CPU accepted different steps")
+        if dx > CPU_TOL:
+            fail(f"pose graph {solver}: the card and the CPU disagree")
+        out[solver] = dx
+    return out
+
+
+def loop_cfg(C):
+    """tests/test_graph_pipeline.py::_cfg's loop gates and score_threshold on
+    ``C.PipelineConfig`` with the graph on (a 5 m circle is 31.4 m long: the
+    default 30 m of accumulated distance would leave no candidate)."""
+    return C.PipelineConfig(
+        enable_graph=True, scan_match=C.ScanMatchConfig(score_threshold=LOOP_SCORE),
+        loop=C.LoopConfig(distance_thresh=3.0, estimated_distance_thresh=9.0,
+                          accum_distance_thresh=12.0, min_loop_interval=2.0))
+
+
+class GraphProbe:
+    """Counts what the pose-graph backend of ``pipe`` does: the kernels'
+    launches and merges inside ``detect_and_optimize``, the wall ms of each
+    ``optimize`` (synchronized), the score and success of each loop's fine
+    match (``scan_match_local``), and each map solve's score and frame
+    features (``mapping_step``); the two are patched for the drive only."""
+
+    def __init__(self, pipe):
+        from cooper_mapper_torch.models import graph as graph_mod
+        from cooper_mapper_torch.models import laser_mapping
+
+        self.launches = dict.fromkeys(read_launches(), 0)
+        self.merges = dict.fromkeys(read_merges(), 0)
+        self.optimize_ms, self.fine, self.solves = [], [], []
+        self._graph_mod, self._mapping = graph_mod, laser_mapping
+        self._local, self._step = graph_mod.sm.scan_match_local, laser_mapping.mapping_step
+        g = pipe.graph
+        detect, optimize = g.detect_and_optimize, g.optimize
+
+        def counted():
+            l0, m0 = read_launches(), read_merges()
+            loop = detect()
+            for k, v in read_launches().items():
+                self.launches[k] += v - l0[k]
+            for k, v in read_merges().items():
+                self.merges[k] += v - m0[k]
+            return loop
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            diag = optimize()
+            torch.cuda.synchronize()
+            self.optimize_ms.append((time.perf_counter() - t0) * 1e3)
+            return diag
+
+        def fine(*args, **kw):
+            res = self._local(*args, **kw)
+            self.fine.append((float(res.score), bool(res.success)))
+            return res
+
+        def step(*args, **kw):
+            out = self._step(*args, **kw)
+            mo = out[2]
+            self.solves.append((float(mo.result.score),
+                                int(mo.corner_ds.mask.sum()) + int(mo.surf_ds.mask.sum())))
+            return out
+
+        self._g = g
+        g.detect_and_optimize, g.optimize = counted, timed
+        graph_mod.sm.scan_match_local = fine
+        laser_mapping.mapping_step = step
+
+    def close(self):
+        self._graph_mod.sm.scan_match_local = self._local
+        self._mapping.mapping_step = self._step
+        del self._g.detect_and_optimize, self._g.optimize
+
+
+def graph_drive(cfg, sweeps, device):
+    """SlamPipeline(cfg, "mapping") over the sweeps with a GraphProbe.
+    Returns (pipe, results, ms per sweep from sweep 3 on, probe)."""
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    pipe = SlamPipeline(cfg, "mapping", device=device)
+    probe = GraphProbe(pipe)
+    results, ms = [], []
+    try:
+        for i, sw in enumerate(sweeps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(pipe.process(sw))
+            torch.cuda.synchronize()
+            if i >= 3:
+                ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        probe.close()
+    return pipe, results, ms, probe
+
+
+def graph_pipeline_phase(device):
+    """SlamPipeline(enable_graph=True) over the loop drive at full width, the
+    default PipelineConfig but for tests/test_graph_pipeline.py::_cfg's loop
+    gates and score_threshold: TestGraphInTheLoop's gates."""
+    from cooper_mapper_torch import config as C
+    from cooper_mapper_torch.io import evaluation, sim
+
+    log(f"[20] SlamPipeline(enable_graph=True) over the loop drive: {LOOP_SWEEPS} sweeps of "
+        f"{RINGS}x{WIDTH}, a 5 m circle closing after 48 sweeps, noise {LOOP_NOISE} m "
+        f"(torch.Generator seed {LOOP_SEED}); PipelineConfig() with LoopConfig(3.0, 9.0, 12.0, "
+        f"2.0) and score_threshold {LOOP_SCORE}")
+    sweeps, truth = sim.loop_drive(LOOP_SWEEPS, WIDTH, LOOP_NOISE, LOOP_SEED, RINGS, device=device)
+    cfg = loop_cfg(C)
+    pipe, results, ms, probe = graph_drive(cfg, sweeps, device)
+    default = C.ScanMatchConfig().score_threshold
+    scores = [sc for sc, _ in probe.solves[1:]]    # the first solve meets an empty map
+    feats = [n for _, n in probe.solves]
+    log(f"    map solves {len(probe.solves)}: the first against a non-empty map scores "
+        f"{scores[0]:.1f}, then {min(scores):.1f}-{max(scores):.1f} (median "
+        f"{float(np.median(scores)):.1f}); the frames carry {min(feats)}-{max(feats)} features "
+        f"after the voxel filter, so {sum(sc >= default for sc in scores)} solves reach "
+        f"the default score_threshold {default}")
+    log(f"    loops {[(lp.key_new, lp.key_old) for lp in pipe.graph.loops]}; fine-match "
+        f"(score, success) {[(round(sc, 1), ok) for sc, ok in probe.fine]}")
+    g = pipe.graph
+    gt_rel = np.stack([np.linalg.inv(truth[0]) @ t for t in truth])
+    period = cfg.registration.scan_period
+    kf_gt = gt_rel[[int(round(kf.stamp / period)) for kf in g.keyframes]][:, :3, 3]
+    ate_map = evaluation.ate(np.stack([kf.odom for kf in g.keyframes])[:, :3, 3], kf_gt).rmse
+    ate_graph = evaluation.ate(g.estimates()[:, :3, 3], kf_gt).rmse
+    corrected = pipe.corrected_trajectory()
+    end_merged = float(np.linalg.norm(results[-1].merged_pose[:3, 3] - gt_rel[-1][:3, 3]))
+    end_graph = float(np.linalg.norm(corrected[-1][:3, 3] - gt_rel[-1][:3, 3]))
+    st = pipe.stats()
+    calls = pipe.timer.calls["graph"]
+    log(f"    stats {st}; keyframes {len(g.keyframes)}, edges {g.n_edges}; keyframe ATE graph "
+        f"{ate_graph:.4f} m vs mapping {ate_map:.4f} m (< {GRAPH_ATE_MAX}); end pose error "
+        f"graph {end_graph:.4f} vs merged {end_merged:.4f} m (+ {END_SLACK}); T_odom2graph - I "
+        f"{float(np.linalg.norm(g.T_odom2graph - np.eye(4))):.4g}")
+    log(f"    graph stage: {calls} calls, {pipe.timer.total_s['graph'] / max(calls, 1) * 1e3:.2f} "
+        f"ms per call; optimize {len(probe.optimize_ms)} calls, ms "
+        f"{[round(x, 1) for x in probe.optimize_ms]}; launches inside the graph stage "
+        f"{probe.launches}, merges {probe.merges}; ms per sweep {ms_stat(ms)}")
+    log("    StageTimer report:\n"
+        + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
+    if not g.loops or not any(r.loop_closed for r in results):
+        fail("the loop drive closed no loop")
+    if not g.loops[0].key_new - g.loops[0].key_old > 8:
+        fail(f"the first loop {g.loops[0]} does not join the circle's end to its start")
+    if not (ate_graph < ate_map and ate_graph < GRAPH_ATE_MAX):
+        fail("the graph did not cut the keyframe ATE")
+    if not all(r.graph_pose is not None for r in results[1:]):
+        fail("a result after the first carries no graph pose")
+    if not (corrected.shape[0] == len(pipe.trajectory)
+            and np.linalg.norm(g.T_odom2graph - np.eye(4)) > 1e-6):
+        fail("corrected_trajectory does not apply the graph correction")
+    if not end_graph < end_merged + END_SLACK:
+        fail("the graph-corrected end pose lost more than the slack")
+    if not {"keyframes", "loop_closures"} <= set(st):
+        fail("stats() lacks the graph counters")
+    if not (probe.launches["nn1"] > 0 and probe.launches["knn"] > 0):
+        fail("the loop closure ran no nn1 or k-NN kernel")
+    return pipe, dict(sweeps=sweeps, truth=gt_rel, cfg=cfg, ms=ms,
+                      launches=probe.launches, merges=probe.merges,
+                      optimize_ms=probe.optimize_ms, ate=(ate_graph, ate_map),
+                      stage_ms=pipe.timer.total_s["graph"] / max(calls, 1) * 1e3)
+
+
+def loop_stack(pipe, n_stack=6):
+    """The loop matcher's surf inputs at the drive's first loop: the new
+    keyframe, the stack of ``n_stack`` keyframes' surf clouds from the old
+    one on in the old one's frame, and the guess, as ``LoopDetector.match``
+    forms them from the current estimates."""
+    from cooper_mapper_torch.models import graph as graph_mod
+
+    g = pipe.graph
+    lp = g.loops[0]
+    est = g.estimates()
+    cands = list(range(lp.key_old, min(lp.key_old + n_stack, lp.key_new)))
+    mat = lambda T: torch.from_numpy(np.asarray(T, np.float32)).to(pipe.device)
+    T_anchor_inv = np.linalg.inv(est[lp.key_old])
+    ref_surf = graph_mod._concat_all([
+        graph_mod._transform_cloud(g.keyframes[i].surf, mat(T_anchor_inv @ est[i]))
+        for i in cands])
+    return g.keyframes[lp.key_new], ref_surf, mat(T_anchor_inv @ est[lp.key_new]), cands
+
+
+def icp_phase(pipe, device):
+    """ICP on the card against the CPU on the drive's loop inputs; nn1 and
+    the k-NN against their plain versions, bit for bit, at the loop's shapes
+    (the ICP search of the keyframe's surf slots against the 6-keyframe
+    stack; the fine match's 5-NN of the voxel-filtered surf against the
+    voxel-filtered stack), with their plans and times."""
+    from cooper_mapper_torch.build import library
+    from cooper_mapper_torch.config import ScanMatchConfig
+    from cooper_mapper_torch.ops import icp, knn, races
+    from cooper_mapper_torch.ops.voxel import voxel_downsample
+    from cooper_mapper_torch.utils import se3
+
+    kf, ref_surf, T_guess, cands = loop_stack(pipe)
+    log(f"[21] ICP and the loop's search shapes: keyframe surf {tuple(kf.surf.xyz.shape)} "
+        f"({int(kf.surf.mask.sum())} valid) vs the stack of keyframes {cands} "
+        f"{tuple(ref_surf.xyz.shape)} ({int(ref_surf.mask.sum())} valid)")
+    T, rmse, n = icp.icp(kf.surf, ref_surf, T_guess, max_iterations=8, max_corr_dist=2.0)
+    Tc, rmse_c, n_c = icp.icp(to_cpu(kf.surf), to_cpu(ref_surf), T_guess.cpu(),
+                              max_iterations=8, max_corr_dist=2.0)
+    dT = float((T.cpu() - Tc).abs().max())
+    log(f"    icp card vs CPU: max |dT| {dT:.3g} (tolerance 1e-4), inliers {int(n)} / "
+        f"{int(n_c)}, rmse {float(rmse):.5f} / {float(rmse_c):.5f}")
+    if not (dT <= 1e-4 and int(n) == int(n_c)):
+        fail("ICP on the card and the CPU disagree")
+    n_sm = races.sm_count(device)
+    q = se3.apply(T_guess, kf.surf.xyz)[None].contiguous()
+    M = ref_surf.xyz.shape[0]
+    S, L = races._split_plan(1, q.shape[1], M, n_sm, library().cooper_nn1_block_queries())
+    m0 = races.nn1.merges
+    ik, dk = races.nn1(q, ref_surf.xyz, ref_surf.mask)
+    merges = races.nn1.merges - m0
+    ip, dp = races.nn1_plain(q, ref_surf.xyz, ref_surf.mask)
+    torch.cuda.synchronize()
+    same = torch.equal(ik, ip) and torch.equal(dk, dp)
+    log(f"    nn1 at the ICP shape 1x{q.shape[1]} vs {M}: split S={S} chunks of L={L} on "
+        f"{n_sm} SMs, merges {merges}; bit-identical to nn1_plain {same}")
+    if not same:
+        fail("nn1 at the ICP shape disagrees with nn1_plain")
+    log(f"    times ({RACE_TIMES})")
+    nn1_row = dict(race_times("nn1", q, ref_surf, float((dk - dp).abs().max())), plan=[S, L],
+                   merges=merges, where="ICP of the loop closure")
+    leaf = ScanMatchConfig().local_surf_leaf
+    surf_ds, ref_ds = voxel_downsample(kf.surf, leaf), voxel_downsample(ref_surf, leaf)
+    qk = se3.apply(T.to(device), surf_ds.xyz)[None].contiguous()
+    ik, dk = knn.knn(qk, ref_ds.xyz, ref_ds.mask, KNN_K)
+    ip, dp = knn.knn_plain(qk, ref_ds.xyz, ref_ds.mask, KNN_K)
+    torch.cuda.synchronize()
+    same = torch.equal(ik, ip) and torch.equal(dk, dp)
+    Sk, Lk = knn._split_plan(1, qk.shape[1], ref_ds.xyz.shape[0], n_sm, knn_block_queries(KNN_K))
+    log(f"    knn at the fine match's shape (voxel-filtered, leaf {leaf} m) 1x{qk.shape[1]} "
+        f"({int(surf_ds.mask.sum())} valid) vs {ref_ds.xyz.shape[0]} ({int(ref_ds.mask.sum())} "
+        f"valid): split S={Sk} chunks of L={Lk}; bit-identical to knn_plain {same}")
+    if not same:
+        fail("knn at the fine match's shape disagrees with knn_plain")
+    knn_row = dict(knn_times("loop fine match", qk, ref_ds, float((dk - dp).abs().max())),
+                   plan=[Sk, Lk], where="the loop closure's fine match")
+    return dict(icp_dT=dT, nn1=nn1_row, knn=knn_row)
+
+
+def graph_save_phase(pipe, drive, device):
+    """GraphSlam.save on the card into a temporary directory: after.g2o
+    holds the estimates within 1e-5 and the edges' information exactly; the
+    saved map, loaded in "localization" mode and seeded at the graph pose
+    four sweeps before the end, localizes the drive's last sweep within
+    SAVE_LOC_TOL of the simulator's pose."""
+    import tempfile
+
+    from cooper_mapper_torch.io import map_io
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    g, cfg = pipe.graph, drive["cfg"]
+    log("[22] GraphSlam.save on the card (.g2o before / after, trajectory PCDs, the rebuilt "
+        "map), then load_g2o and load_feature_map in localization mode")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        g.save(d, map_cfg=cfg.feature_map)
+        save_s = time.perf_counter() - t0
+        poses, edges = map_io.load_g2o(os.path.join(d, "after.g2o"))
+        dpose = float(np.abs(poses - g.estimates()).max())
+        info_same = all(np.array_equal(a[3], b[3]) and (a[0], a[1]) == (b[0], b[1])
+                        for a, b in zip(edges, g.edges_list())) and len(edges) == g.n_edges
+        n_cubes = len(os.listdir(os.path.join(d, "map"))) - 1
+        t0 = time.perf_counter()
+        loaded = map_io.load_feature_map(os.path.join(d, "map"), cfg.feature_map, device=device)
+        load_s = time.perf_counter() - t0
+    k0 = len(drive["sweeps"]) - 4
+    loc_cfg = dataclasses.replace(cfg, enable_graph=False)
+    loc = SlamPipeline(loc_cfg, "localization", map_state=loaded,
+                       initial_pose=pipe.corrected_trajectory()[k0], device=device)
+    res = [loc.process(sw) for sw in drive["sweeps"][k0:]]
+    err = float(np.linalg.norm(res[-1].merged_pose[:3, 3] - drive["truth"][-1][:3, 3]))
+    log(f"    saved in {save_s:.2f} s ({n_cubes} cube files); after.g2o vs estimates max "
+        f"{dpose:.3g} (tolerance 1e-5); edges {len(edges)}, information equal {info_same}; "
+        f"loaded in {load_s:.2f} s; localization from sweep {k0} on the loaded map: "
+        f"{loc.stats()}, last sweep {err:.4f} m from the simulator (< {SAVE_LOC_TOL})")
+    if not (dpose <= 1e-5 and info_same):
+        fail("the saved g2o does not hold the graph")
+    if not err < SAVE_LOC_TOL:
+        fail("the saved map does not localize the drive's last sweep")
+    return dict(save_s=save_s, loc_err=err)
+
+
+def graph_card_vs_cpu_phase(device):
+    """The graph pipeline at phase 17's reduced configuration (tests/
+    test_pipeline.py's _small_cfg with dedup after every map solve) with
+    tests/test_torch_graph_pipeline.py's small loop gates and a 64-node
+    graph, on the card and the CPU, on the same sweeps (7 of ``_simulate``,
+    simulated on the CPU): the same keyframe and loop flags and loops, graph
+    estimates and graph poses within CPU_TOL.  Dedup runs after every map
+    solve: at the default dedup_stride of 4 a map solve's match fraction
+    sits on the 0.4 gate (0.39836 on the card, 0.4 on the CPU), so rounding
+    may flip it between the devices."""
+    from cooper_mapper_torch import config as C
+    from cooper_mapper_torch.models import laser_mapping
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.ops.features import Sweep
+
+    log("[23] SlamPipeline(enable_graph=True) card vs CPU at phase 17's reduced configuration "
+        "(_small_cfg, dedup_stride=1) with loop gates 1.0 / 0.5 / 3.0 / 9.0 and 64 nodes, "
+        "7 sweeps")
+    sweeps_cpu = simulate_reduced("cpu", n=7)
+    mapping_step = laser_mapping.mapping_step
+    solves = []
+
+    def recorded(*args, **kw):
+        out = mapping_step(*args, **kw)
+        r = out[2].result
+        solves.append((round(float(r.score), 2), round(float(r.match_fraction), 5),
+                       bool(r.success)))
+        return out
+
+    cfg = reduced_pipeline_cfg(
+        C, enable_graph=True, pose_graph=C.PoseGraphConfig(max_nodes=64, max_edges=128),
+        loop=C.LoopConfig(distance_thresh=3.0, estimated_distance_thresh=9.0,
+                          accum_distance_thresh=1.0, min_loop_interval=0.5))
+    runs = {}
+    for dev in (device, "cpu"):
+        sweeps = [Sweep(s.xyz.to(dev), s.mask.to(dev), s.rel_time.to(dev)) for s in sweeps_cpu]
+        pipe = SlamPipeline(cfg, "mapping", device=dev)
+        solves.clear()
+        laser_mapping.mapping_step = recorded
+        try:
+            results = [pipe.process(s) for s in sweeps]
+        finally:
+            laser_mapping.mapping_step = mapping_step
+        flags = [(r.new_keyframe, r.loop_closed) for r in results]
+        log(f"    {dev}: per sweep (new_keyframe, loop_closed) {flags}; map solves (score, "
+            f"match fraction, success) {solves}; loops "
+            f"{[(lp.key_new, lp.key_old) for lp in pipe.graph.loops]}")
+        runs[dev] = (pipe, results, flags)
+    (gp, gr, gflags), (cp, cr, cflags) = runs[device], runs["cpu"]
+    loops = [(lp.key_new, lp.key_old) for lp in gp.graph.loops]
+    same = gflags == cflags and loops == [(lp.key_new, lp.key_old) for lp in cp.graph.loops]
+    if not cp.graph.loops:
+        fail("the reduced graph drive closed no loop on the CPU")
+    if not same:
+        fail("the graph pipeline on the card and on the CPU made other keyframes or loops")
+    d_est = float(np.abs(gp.graph.estimates() - cp.graph.estimates()).max())
+    d_pose = max(float(np.abs(a.graph_pose - b.graph_pose).max()) for a, b in zip(gr[1:], cr[1:]))
+    log(f"    keyframe and loop flags and loops {loops} equal; max |d estimates| {d_est:.3g}, "
+        f"max |d graph_pose| {d_pose:.3g} (tolerance {CPU_TOL})")
+    if not (d_est <= CPU_TOL and d_pose <= CPU_TOL):
+        fail("the graph pipeline on the card and on the CPU disagree")
+    return max(d_est, d_pose)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
     import cooper_mapper_torch  # noqa: F401  (TF32 off)
-
-    import os
 
     os.environ["COOPER_PALLAS_FUSED"] = "0"      # the default route, whatever the caller set
     device = "cuda"
@@ -1645,6 +2173,13 @@ def main():
     local_run = local_phase(sweeps, truth, device)
     quick = quick_start_phase(device)
     reduced_pipe_dx = reduced_pipeline_card_vs_cpu_phase(device)
+    pg_run = pose_graph_phase(device)
+    pg_cpu_dx = pose_graph_card_vs_cpu_phase(device)
+    gpipe, gdrive = graph_pipeline_phase(device)
+    icp_run = icp_phase(gpipe, device)
+    save_run = graph_save_phase(gpipe, gdrive, device)
+    del gpipe
+    graph_dx = graph_card_vs_cpu_phase(device)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -1653,7 +2188,10 @@ def main():
                # no TPU counterpart: the merge of the split searches of nn1.py:69, :173, :301
                "merge_min": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "split.cuh"),
                "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
-    extra = ("device_ms", "plan", "split_route_device_ms")
+    extra = ("valid_ref", "device_ms", "plan", "split_route_device_ms", "merges", "where")
+    # the loop closure's shapes (phase 21): nn1 in ICP, the k-NN in the fine match
+    more_shapes["nn1"].append(icp_run["nn1"])
+    more_shapes["knn"] = [icp_run["knn"]]
     fields = lambda v: {"max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
                         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
                         "library_ms": v["library_ms"], "shape": v["shape"],
@@ -1671,12 +2209,18 @@ def main():
         # the SlamPipeline drive of phase 13 (mapping with IMU, split route)
         row["pipeline"] = dict(launches=pipe_run["launches"][row["name"]],
                                merges=pipe_run["launches"]["merges"].get(row["name"], 0))
+        # inside the graph stage of the loop drive (phase 20): ICP, the fine match
+        row["graph"] = dict(launches=gdrive["launches"][row["name"]],
+                            merges=gdrive["merges"].get(row["name"], 0))
         if row["name"] in single_stream:
             # launches: the single-stream drive's on the split route
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
                                          merges=ss_launches["merges"][row["name"]])
                                     for v in single_stream[row["name"]]]
-    log(f"[18] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    pg_stat = lambda r: (f"{r['solver']} n={r['n']} {r['iters_per_s'][0]:.2f} / "
+                         f"{r['iters_per_s'][1]:.2f} LM iterations/s, "
+                         f"{min(r['ms']):.1f} ms per optimize")
+    log(f"[24] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
         + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
@@ -1688,8 +2232,14 @@ def main():
         f"{pipe_run['gt_err']:.4f} m; localization pipeline steady {pipe_loc['steady']:.4f} m "
         f"(seed {pipe_loc['seed_err']:.4f}); local {local_run['gt_err']:.4f} m, ATE "
         f"{local_run['ate']:.4f}; Quick start ATE mapping {quick['ate']:.4f} / odometry "
-        f"{quick['ate_odo']:.4f} m; reduced pipeline card vs CPU {reduced_pipe_dx}; "
-        f"on {name} ({smi})")
+        f"{quick['ate_odo']:.4f} m; reduced pipeline card vs CPU {reduced_pipe_dx}; pose graph "
+        + "; ".join(pg_stat(pg_run[k]) for k in ("dense", "cg", "cg_big"))
+        + f"; pose graph card vs CPU {pg_cpu_dx}; loop drive keyframe ATE graph "
+        f"{gdrive['ate'][0]:.4f} / mapping {gdrive['ate'][1]:.4f} m at score_threshold "
+        f"{LOOP_SCORE}, graph stage {gdrive['stage_ms']:.1f} ms per call, ms per sweep "
+        f"{min(gdrive['ms']):.1f} / {float(np.median(gdrive['ms'])):.1f}; ICP card vs CPU "
+        f"{icp_run['icp_dT']:.3g}; saved map localizes at {save_run['loc_err']:.4f} m; graph "
+        f"pipeline card vs CPU {graph_dx:.3g}; on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,7 +1,8 @@
 """numpy <-> port state: builds the port's ``Cloud``, ``Sweep``,
 ``FeatureClouds`` and the single-stream states (``OdometryState``,
-``MatcherState``, ``FeatureMapState``, ``FusedState``) from numpy arrays
-whose field names are the JAX package's, and turns results back into numpy.
+``MatcherState``, ``FeatureMapState``, ``FusedState``) and the
+``PoseGraph`` from numpy arrays whose field names are the JAX package's,
+and turns results back into numpy.
 
 There are no weights in this system; what crosses between the packages is
 state (clouds in, results out).  ``cloud``, ``sweep`` and
@@ -23,6 +24,7 @@ from .maps.feature_map import CubeCloud, FeatureMapState
 from .models.fused import FusedState
 from .models.laser_mapping import MatcherState
 from .models.laser_odometry import OdometryState
+from .ops.pose_graph import PoseGraph
 from .ops.features import FeatureClouds, Sweep
 from .utils.cloud import Cloud
 
@@ -76,6 +78,14 @@ def feature_map_state(s, device="cuda") -> FeatureMapState:
 def fused_state(s, device="cuda") -> FusedState:
     return FusedState(odometry_state(s.odo, device), matcher_state(s.matcher, device),
                       feature_map_state(s.map, device))
+
+
+def pose_graph(g, device="cuda") -> PoseGraph:
+    """A JAX ``PoseGraph`` (or any object with its fields) as the port's."""
+    return PoseGraph(*(_array(getattr(g, f.name), dt, device) for f, dt in zip(
+        dataclasses.fields(PoseGraph),
+        (torch.float32, torch.bool, torch.int32, torch.int32, torch.float32, torch.float32,
+         torch.bool))))
 
 
 def to_numpy(result) -> dict:

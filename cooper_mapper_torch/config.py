@@ -10,10 +10,6 @@ are carried for field parity only, and the solves raise unless they keep
 their defaults: the port's dispatch follows the tensors' device (a CUDA
 tensor launches the kernels, a CPU tensor runs their plain versions), its
 products are always full f32, and its GN loops are Python loops.
-``LoopConfig``, ``PoseGraphConfig``, ``KeyframeConfig``'s use by the graph
-and ``PipelineConfig.enable_graph`` belong to the pose-graph backend, which
-is not ported: ``models/pipeline.SlamPipeline`` raises on
-``enable_graph=True``.
 """
 
 from __future__ import annotations

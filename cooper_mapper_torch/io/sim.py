@@ -103,14 +103,18 @@ def _linspace(start: float, stop: float, num: int, endpoint: bool, device):
 
 def scan_sweep(world: PlaneWorld, pose_start, pose_end, n_rings: int = 16,
                width: int = 1024, vfov=(-15.0, 15.0), max_range: float = 150.0,
-               distortion: bool = True) -> Sweep:
+               distortion: bool = True, noise: float = 0.0,
+               generator: torch.Generator | None = None) -> Sweep:
     """Simulate one organized sweep on the device of ``world``.
 
     Each azimuth column is cast from the pose interpolated at its rel_time
     when ``distortion`` (the rolling-shutter effect LOAM's motion
     compensation undoes); points come back in the capture sensor frame.
-    The JAX simulator's optional noise is not ported (the headline path uses
-    none).
+    ``noise`` > 0 adds isotropic Gaussian noise of that standard deviation
+    (metres) to every world point, drawn from ``generator`` (a
+    ``torch.Generator`` on the world's device) where the JAX simulator draws
+    from its ``key``: the two draws cannot be equal, only alike in
+    distribution.  As in the JAX simulator, no generator means no noise.
     """
     dev = world.origin.device
     pose_start = pose_start.to(dev, torch.float32)
@@ -139,6 +143,9 @@ def scan_sweep(world: PlaneWorld, pose_start, pose_end, n_rings: int = 16,
 
     t, hit = ray_cast(world, orig_w, dirs_w, max_range)
     pts_world = orig_w + t[..., None] * dirs_w
+    if noise > 0.0 and generator is not None:
+        pts_world = pts_world + noise * torch.randn(pts_world.shape, generator=generator,
+                                                    device=dev)
 
     if distortion:
         pts_sensor = torch.einsum("wji,rwj->rwi", R_col, pts_world - t_col[None, :, :])
@@ -164,3 +171,61 @@ def figure_eight_trajectory(n_poses: int, scale=8.0, height=1.5, period=60.0):
         poses[i] = np.array([[c, 0, si, x[i]], [0, 1, 0, y[i]], [-si, 0, c, z[i]], [0, 0, 0, 1]],
                             np.float32)
     return poses
+
+
+def loop_drive(n_sweeps: int = 52, width: int = 1024, noise: float = 0.03, seed: int = 7,
+               n_rings: int = 16, device="cuda"):
+    """The loop-closure drive of the JAX package's ``examples/demo_graph_slam.py``
+    and ``tests/test_graph_pipeline.py``: ``n_sweeps`` sweeps of ``n_rings``
+    x ``width`` around a 5 m circle that closes after 48 sweeps, in
+    ``make_room_world(size=(30, 4, 40), n_pillars=8, seed=3)``, with
+    ``noise`` m of sensor noise from a ``torch.Generator`` seeded ``seed``.
+    Returns (sweeps, start poses [n_sweeps, 4, 4] float32, numpy)."""
+    world = make_room_world(size=(30.0, 4.0, 40.0), n_pillars=8, seed=3, device=device)
+    yaw = 2 * np.pi / 48
+    c, s = np.cos(yaw), np.sin(yaw)
+    step = np.array([[c, 0, s, 0.0], [0, 1, 0, 0], [-s, 0, c, 5.0 * 2 * np.sin(yaw / 2)],
+                     [0, 0, 0, 1]], np.float32)
+    poses = [np.eye(4, dtype=np.float32)]
+    poses[0][1, 3] = 1.5
+    for _ in range(n_sweeps):
+        poses.append(poses[-1] @ step)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sweeps = [scan_sweep(world, torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]),
+                         n_rings, width, noise=noise, generator=gen) for i in range(n_sweeps)]
+    return sweeps, np.stack(poses[:n_sweeps])
+
+
+def drifted_ring_graph(n: int, seed: int = 0, loop_every: int = 100):
+    """The JAX package's pose-graph benchmark problem
+    (``benchmarks/bench_pose_graph.build_graph``) in numpy: a ring of ``n``
+    poses 1 m apart, odometry edges with 0.02 m of noise per step (the
+    estimates drift), and an exact loop edge every ``loop_every`` nodes.
+    Returns (poses, edge_i, edge_j, edge_T, edge_info) for
+    ``ops.pose_graph.from_arrays``."""
+    rng = np.random.RandomState(seed)
+    gt = [np.eye(4, dtype=np.float32)]
+    step = np.eye(4, dtype=np.float32)
+    step[0, 3] = 1.0
+    th = 2 * np.pi / n
+    rot = np.array([[np.cos(th), 0, np.sin(th), 0], [0, 1, 0, 0],
+                    [-np.sin(th), 0, np.cos(th), 0], [0, 0, 0, 1]], np.float32)
+    for _ in range(1, n):
+        gt.append(gt[-1] @ step @ rot)
+    est = [gt[0]]
+    ei, ej, eT, einfo = [], [], [], []
+    for k in range(1, n):
+        noise = np.eye(4, dtype=np.float32)
+        noise[:3, 3] = 0.02 * rng.randn(3)
+        rel_noisy = (np.linalg.inv(gt[k - 1]) @ gt[k] @ noise).astype(np.float32)
+        est.append((est[-1] @ rel_noisy).astype(np.float32))
+        ei.append(k - 1)
+        ej.append(k)
+        eT.append(rel_noisy)
+        einfo.append(np.ones(6, np.float32))
+    for k in range(loop_every, n, loop_every):
+        ei.append(k - loop_every)
+        ej.append(k)
+        eT.append((np.linalg.inv(gt[k - loop_every]) @ gt[k]).astype(np.float32))
+        einfo.append(2.0 * np.ones(6, np.float32))
+    return np.stack(est), np.array(ei), np.array(ej), np.stack(eT), np.stack(einfo)

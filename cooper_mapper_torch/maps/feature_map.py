@@ -114,6 +114,19 @@ def _grid_index(cube_idx, origin, cfg: MapConfig):
     return torch.where(in_grid, flat, nx * ny * nz), in_grid
 
 
+def slot_world_index(origin, n_cubes):
+    """Per-slot world cube index [NC, 3] (numpy) under the window at
+    ``origin``: the inverse of the toroidal slot map.  Slot coordinate s on
+    an axis of length n holds the world index origin + ((s - origin) mod n),
+    the one inside [origin, origin + n).  Host-side numpy (map_io names the
+    cube files by world index)."""
+    nx, ny, nz = (int(v) for v in n_cubes)
+    s = np.stack(np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"),
+                 axis=-1).reshape(-1, 3)
+    o = np.asarray(origin).reshape(1, 3)
+    return o + np.mod(s - o, np.array([nx, ny, nz]))
+
+
 def _insert(cc: CubeCloud, xyz, mask, cube_flat, nc: int) -> CubeCloud:
     """Scatter points into their cubes behind the existing counts, in place.
     Within a cube, points keep their input order (a stable sort by cube);

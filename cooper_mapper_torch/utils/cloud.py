@@ -67,6 +67,13 @@ def empty(capacity: int, device=None) -> Cloud:
                 torch.zeros(capacity, dtype=torch.bool, device=device))
 
 
+def concat(a: Cloud, b: Cloud) -> Cloud:
+    """``b``'s points after ``a``'s (along the point axis)."""
+    return Cloud(torch.cat([a.xyz, b.xyz], dim=-2), torch.cat([a.mask, b.mask], dim=-1),
+                 torch.cat([a.ring, b.ring], dim=-1),
+                 torch.cat([a.rel_time, b.rel_time], dim=-1))
+
+
 def compact(c: Cloud, capacity: int | None = None) -> Cloud:
     """Stable-sort valid points to the front of an unbatched cloud, then keep
     the first ``capacity`` entries."""

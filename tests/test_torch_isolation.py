@@ -43,7 +43,7 @@ def _run(code):
 def test_imports_without_jax():
     res = _run(_BLOCKED_IMPORTS)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 30
+    assert int(res.stdout.split()[-1]) >= 35
 
 
 def test_tf32_off_after_import():
@@ -73,7 +73,9 @@ def test_module_list_covers_the_slice():
                 "utils.profiling", "io.evaluation", "models.scan_registration",
                 "maps.local_map", "ops.ukf", "fusion.pose_system", "fusion.ukf_estimator",
                 "fusion.imu_queue", "fusion.extrinsics", "models.transform_maintenance",
-                "models.pipeline"):
+                "models.pipeline",
+                # the pose-graph backend and its persistence
+                "ops.pose_graph", "ops.icp", "models.graph", "io.pcd", "io.map_io"):
         assert f"cooper_mapper_torch.{mod}" in names
 
 

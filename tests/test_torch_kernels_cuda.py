@@ -708,3 +708,74 @@ def test_voxel_and_cube_cells_on_card_equal_cpu_on_cell_boundaries(cuda):
         assert torch.equal(voxel_coords(xyz.to(cuda), leaf).cpu(), voxel_coords(xyz, leaf))
     cfg = MapConfig(cube_size=10.0)
     assert torch.equal(world_to_cube(xyz.to(cuda), cfg).cpu(), world_to_cube(xyz, cfg))
+
+
+# ---- the pose-graph backend on the card ------------------------------------
+
+def _ring_graph(device, solver, **changes):
+    """sim.drifted_ring_graph(64, loop_every=16) on ``device`` and its
+    PoseGraphConfig (64 nodes, 128 edges)."""
+    from cooper_mapper_torch.config import PoseGraphConfig
+    from cooper_mapper_torch.io import sim
+    from cooper_mapper_torch.ops import pose_graph as pg
+
+    g = pg.from_arrays(*sim.drifted_ring_graph(64, loop_every=16), max_nodes=64,
+                       max_edges=128, device=device)
+    return g, PoseGraphConfig(max_nodes=64, max_edges=128, solver=solver, **changes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_lm_on_card_repeats_and_equals_cpu(cuda, solver):
+    # the scatter-adds are ordered segment sums, so a repeat gives the same
+    # bits; the card and the CPU agree within the pipeline's 2e-3
+    from cooper_mapper_torch.ops import pose_graph as pg
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        g, cfg = _ring_graph(dev, solver)
+        runs[dev.type] = (g, pg.optimize(g, cfg), pg.optimize(g, cfg))
+    g, (a, da), (b, _) = runs["cuda"]
+    _, (c, dc), _ = runs["cpu"]
+    assert torch.equal(a.poses, b.poses)
+    assert torch.equal(a.poses[0], g.poses[0])
+    assert float((a.poses.cpu() - c.poses).abs().max()) <= 2e-3
+    assert float(da["lambda"]) == float(dc["lambda"])
+    assert float(da["final_cost"]) < 0.2 * float(da["initial_cost"])
+
+
+@pytest.mark.cuda
+def test_pose_graph_nan_edge_on_card_keeps_the_poses(cuda):
+    # cholesky_ex reports the failed factorization on the device: no raise,
+    # the step is zero, lambda climbs to its clip
+    from cooper_mapper_torch.ops import pose_graph as pg
+
+    g, cfg = _ring_graph(cuda, "dense", max_iterations=12)
+    g.edge_T[3, 0, 3] = float("nan")
+    out, diag = pg.optimize(g, cfg)
+    assert torch.equal(out.poses, g.poses)
+    assert float(diag["lambda"]) == 1e6
+
+
+@pytest.mark.cuda
+def test_icp_on_card_equals_cpu(cuda):
+    from cooper_mapper_torch.ops import icp
+    from cooper_mapper_torch.utils import cloud as cloud_lib
+    from cooper_mapper_torch.utils import se3
+
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-5, 5, (4000, 3)).astype(np.float32)
+    pts[:2000, 1] = 0.0
+    pts[2000:, 0] = 3.0
+    T_true = se3.se3_exp(torch.tensor([0.3, -0.2, 0.1, 0.02, 0.05, -0.03]))
+    src = ((torch.from_numpy(pts) - T_true[:3, 3]) @ T_true[:3, :3]).numpy()
+    pts = pts + 0.01 * rng.randn(*pts.shape).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        target = cloud_lib.from_points(pts, capacity=4100, device=dev)
+        source = cloud_lib.from_points(src, capacity=4096, device=dev)
+        out[dev.type] = icp.icp(source, target, torch.eye(4, device=dev), max_iterations=8)
+    (T, rmse, n), (Tc, rmse_c, n_c) = out["cuda"], out["cpu"]
+    assert float((T.cpu() - Tc).abs().max()) <= 1e-4
+    assert int(n) == int(n_c)
+    assert abs(float(rmse) - float(rmse_c)) <= 1e-5

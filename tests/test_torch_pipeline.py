@@ -320,7 +320,10 @@ def test_figure_eight_trajectory_equals_jax():
 @pytest.mark.parametrize("kwargs,item", [
     ({"map_mesh": object()}, "item 8"),
     ({"cfg": tc.PipelineConfig(matcher=tc.MatcherConfig(dynamic_mode=True))}, "item 7"),
-    ({"cfg": tc.PipelineConfig(enable_graph=True)}, "item 6"),
+    # the pose-graph backend is ported (item 6); with it on, the options that
+    # are not still raise
+    ({"cfg": tc.PipelineConfig(enable_graph=True,
+                               matcher=tc.MatcherConfig(dynamic_mode=True))}, "item 7"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

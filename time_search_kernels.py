@@ -41,9 +41,10 @@ calls after 2 warm-ups, as ``chip_smoke.py`` times them); the device ms per
 call of the port's own kernels in it (``torch.profiler`` over 20 calls, as
 ``profile_torch_solve.py`` reports them), with their launches per call, and
 of every kernel the call launches (the wrapper's input prep included); the
-bound (``chip_smoke.py``'s pairs x FP32 operations per pair over the non-FMA
-FP32 rate, or for merge_min the bytes over the HBM rate); the card's name
-and power limit.  ``device_ms_by_kernel`` splits the port's kernels by name,
+bound (``chip_smoke.py``'s valid pairs, each query against the valid
+reference points, x FP32 operations per pair over the non-FMA FP32 rate,
+or for merge_min the bytes over the HBM rate); the card's name and power
+limit.  ``device_ms_by_kernel`` splits the port's kernels by name,
 so that merge_min's time inside a split race is read in a checkout that has
 no merge_min kind.  ``--variants`` also times each fused plan
 (``races.FUSED_PLANS``, forced through ``plan=``), where the checkout has
@@ -189,7 +190,7 @@ def time_tree(path, label, only=None, variants=False):
                 kern = lambda: races.bc_races(*args)
                 plain = races.bc_races_plain(*args)
             B, Q, _ = q.shape
-            bound = B * Q * r.shape[-2] * ops / cs.FP32_PEAK_OPS * 1e3
+            bound = Q * cs.ref_counts(B, m)[2] * ops / cs.FP32_PEAK_OPS * 1e3
             res[name] = {}
             if v["kind"] == "fused_races" and hasattr(races, "_fused_plan"):
                 res[name]["plan"] = races._fused_plan(B, Q, races.sm_count(q.device))
