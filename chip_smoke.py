@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Five paths run, each through the entry points a user calls.
+Six paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -39,6 +39,13 @@ tests/test_graph_pipeline.py at full width (52 noisy VLP-16 sweeps of a
 5 m circle): keyframes, loop candidates, ICP on the nn1 kernel, the damped
 fine match on the k-NN kernel, loop edges and the LM; then
 ``GraphSlam.save`` and the saved map reloaded.
+
+Parity modes: the reference's iteration dynamics (the port-typo Jacobian,
+the -0.05 under-relaxation, the LU solve, the row-zeroing projector) through
+``batch_odometry_solve``, ``models/laser_odometry.step`` and
+``batch_scan_match`` with ``parity_mode=True``, held to the float64 C++
+transcription ``tests/ref_oracle.py``; then ``dewarp_passes=2`` through
+``SlamPipeline`` and ``extract_features_debug``.
 
 Phases, each announced on its own line as it starts:
 
@@ -171,7 +178,44 @@ Phases, each announced on its own line as it starts:
    ``_simulate``, simulated on the CPU): the same keyframe and loop flags
    and loops, graph estimates and graph poses within 2e-3, with every map
    solve's score and match fraction printed;
-24. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+24. the parity modes (the reference's iteration dynamics) against the float64
+   transcription of the C++ solves, ``tests/ref_oracle.py`` (loaded by path;
+   numpy only): the odometry parity solve on phase 4's bench pair (one
+   problem, the clouds ring-major sorted as tests/test_parity_golden.py sorts
+   them) after k = 1, 2, 5, 7, 10, 25 iterations within 3e-4 of the oracle's
+   trace, on the split route and with ``COOPER_PALLAS_FUSED=1``; the
+   oracle's seconds;
+25. ``batch_odometry_solve(parity_mode=True)`` at B = 512 on the bench
+   problem: 10 nn1, 5 nn1_masked and 5 bc_races launches, every lane finite,
+   four lanes equal to a CPU run within 2e-3; steady-state solves/s of the
+   parity and the native mode, timed in turns;
+26. ``models/laser_odometry.step(parity_mode=True)`` over phase 9's sweeps:
+   per sweep the split route's race launches and merges of phase 9, every
+   pose finite, the final position error printed;
+27. ``batch_scan_match(parity_mode=True)`` at B = 64 on phase 6's problem:
+   22 k-NN launches, every lane finite, four lanes equal to a CPU run
+   within 2e-3; then tests/test_parity_golden.py::map_scene built with the
+   port's simulator and extractor at 16 x 512, at eig_threshold 10
+   (non-degenerate) and 100 (degenerate): the card's trace after k = 1, 3,
+   10 iterations within 2e-3 of the oracle's; the per-column sign agreement
+   of the card's iteration-0 eigenvectors with numpy's is printed, and where
+   a sign differs on the degenerate scene the gate holds the card to the
+   oracle run with the card's signs (numpy's eigenvectors of its 6x6 system,
+   signed as the card's), since the row-zeroing projector follows the signs
+   (ROADMAP Queue 3);
+28. ``dewarp_passes=2``: README's Quick start figure eight (phase 16's
+   drive) with twice the race launches and merges per sweep, its ATE beside
+   phase 16's; then the mapping pipeline at phase 17's reduced configuration
+   with ``dewarp_passes=2`` on the card and the CPU (CPU-simulated sweeps):
+   every merged pose within 2e-3;
+29. ``extract_features_debug`` on the bench sweep (16 x 1024, simulated on
+   the CPU) on the card: its clouds bit-identical to ``extract_features``',
+   the picked masks' counts equal to the clouds' counts, status, label and
+   region ids within their sets; against the CPU: curvature within 1e-5
+   relative, status and region ids equal, labels different on at most 0.1%
+   of the points (an ulp of arccos / cos decides a threshold) and the picks
+   only in the rings of such a label, with the differing points printed;
+30. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
@@ -181,9 +225,10 @@ Phases, each announced on its own line as it starts:
    shapes under ``more_shapes``; the merge_min row's launches are the split
    route's drive's, at S = 66 of 1024 queries with S = 32 under
    ``more_shapes``; every row's ``pipeline`` holds its launches and merges in
-   phase 13's drive, and its ``graph`` those inside the graph stage of phase
-   20's drive; nn1's ICP shape and the k-NN's fine-match shape of phase 21
-   are under their ``more_shapes``), then the result line.
+   phase 13's drive, its ``graph`` those inside the graph stage of phase
+   20's drive, and its ``parity`` those of phases 24-27's solves; nn1's ICP
+   shape and the k-NN's fine-match shape of phase 21 are under their
+   ``more_shapes``), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -1355,13 +1400,15 @@ def imu_window(i, device):
 def drive_pipeline(pipe, sweeps, label, imu=False, check_launches=True):
     """``pipe.process`` over the sweeps (with TestImuFusion's IMU windows when
     ``imu``), every launch counter at 0 first.  Per sweep after the first it
-    checks the split route's race launches (as phase 9's) and 2 x 11 k-NN
-    launches where a map solve ran.  Returns (results, ms per sweep from sweep
-    3 on, the drive's launches with the split searches' merges, the last IMU
-    window)."""
+    checks the split route's race launches (as phase 9's, once per de-warp
+    pass of ``cfg.odometry.dewarp_passes``) and 2 x 11 k-NN launches where a
+    map solve ran.  Returns (results, ms per sweep from sweep 3 on, the
+    drive's launches with the split searches' merges, the last IMU window)."""
     on_card = pipe.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    race = {"nn1": 10, "nn1_masked": 5, "bc_races": 5, "fused_races": 0}
+    passes = max(pipe.cfg.odometry.dewarp_passes, 1)
+    race = {"nn1": 10 * passes, "nn1_masked": 5 * passes, "bc_races": 5 * passes,
+            "fused_races": 0}
     race_merges = split_race_merges(pipe.cfg, race["bc_races"], pipe.device) if on_card else {}
     race["merge_min"] = sum(race_merges.values())
     knn_per_solve = 2 * (pipe.cfg.scan_match.max_iterations + 1)
@@ -2107,6 +2154,427 @@ def graph_card_vs_cpu_phase(device):
     return max(d_est, d_pose)
 
 
+# The parity modes: the reference's iteration dynamics, held to the float64
+# transcription of the C++ solves in tests/ref_oracle.py (numpy only)
+GOLDEN_KS = (1, 2, 5, 7, 10, 25)   # tests/test_parity_golden.py::TestGoldenTrace
+ODO_GOLDEN_TOL = 3e-4               # its tolerance
+SM_GOLDEN_TOL = 2e-3                # TestScanMatchGolden's
+SM_GOLDEN_KS = (1, 3, 10)
+
+
+def load_oracle():
+    """tests/ref_oracle.py, loaded by path (it imports numpy only)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "ref_oracle.py")
+    spec = importlib.util.spec_from_file_location("ref_oracle", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod       # its dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def add_counts(tally, launches, merges):
+    """Add one run's launches and merges to ``tally`` (name -> dict)."""
+    for k, n in launches.items():
+        row = tally.setdefault(k, {"launches": 0, "merges": 0})
+        row["launches"] += n
+        row["merges"] += merges.get(k, 0)
+
+
+def counted(tally, fn):
+    """``fn()`` with every launch counter at 0 first; its launches and merges
+    are added to ``tally`` and returned beside its result."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches, merges = read_launches(), read_merges()
+    add_counts(tally, launches, merges)
+    return out, launches, merges
+
+
+def ring_major(cl):
+    """(xyz, ring, rel_time) numpy of a cloud's valid points, ring-major
+    sorted (tests/test_parity_golden.py::_ring_major_dense): the layout the
+    reference's index walks assume."""
+    m = cl.mask.cpu().numpy()
+    xyz, ring, rel = (t.cpu().numpy()[m] for t in (cl.xyz, cl.ring, cl.rel_time))
+    order = np.lexsort((rel, ring))
+    return xyz[order], ring[order], rel[order]
+
+
+def golden_odometry_phase(clouds, tally, device):
+    """The odometry parity solve against the oracle's trace on the bench
+    pair, on both routes."""
+    from cooper_mapper_torch.config import OdometryConfig
+    from cooper_mapper_torch.ops import odometry
+    from cooper_mapper_torch.utils import cloud
+
+    oracle = load_oracle()
+    dense = [ring_major(c) for c in clouds]
+    log(f"[24] golden odometry trace: the bench pair of phase 4 (sharp, flat, less_sharp, "
+        f"less_flat: {[len(d[0]) for d in dense]} points, ring-major) against "
+        f"tests/ref_oracle.odometry_scan_match in float64")
+    f64 = lambda a: a.astype(np.float64)
+    (sx, _, s_rel), (fx, _, f_rel), (cx, c_ring, _), (rx, r_ring, _) = dense
+    t0 = time.perf_counter()
+    trace = oracle.odometry_scan_match(f64(sx), f64(s_rel), f64(fx), f64(f_rel), f64(cx), c_ring,
+                                       f64(rx), r_ring)
+    oracle_s = time.perf_counter() - t0
+    log(f"    oracle: {oracle_s:.2f} s for {len(trace)} iterations; iteration 0 degenerate "
+        f"{trace[0].is_degenerate}, rows {trace[0].n_selected}; final x {trace[-1].x.round(5).tolist()}")
+    port = [cloud.from_points(d[0], capacity=c.xyz.shape[0], ring=d[1], rel_time=d[2],
+                              device=device) for d, c in zip(dense, clouds)]
+    errs = {}
+    try:
+        for route in ("split", "fused"):
+            os.environ["COOPER_PALLAS_FUSED"] = "1" if route == "fused" else "0"
+
+            def solves():
+                return [odometry.odometry_solve(*port, torch.zeros(6, device=device),
+                                                OdometryConfig(max_iterations=k),
+                                                parity_mode=True)[0] for k in GOLDEN_KS]
+            xs, launches, _ = counted(tally, solves)
+            err = [float(np.abs(x.double().cpu().numpy() - trace[min(k, len(trace)) - 1].x).max())
+                   for k, x in zip(GOLDEN_KS, xs)]
+            errs[route] = max(err)
+            log(f"    {route} route: max |x - oracle| after k = {list(GOLDEN_KS)} iterations "
+                f"{[f'{e:.3g}' for e in err]} (tolerance {ODO_GOLDEN_TOL}); launches {launches}")
+            used = launches["fused_races"] if route == "fused" else launches["nn1"]
+            if not (used > 0 and max(err) <= ODO_GOLDEN_TOL):
+                fail(f"the parity odometry trace on the {route} route left the oracle's")
+    finally:
+        os.environ["COOPER_PALLAS_FUSED"] = "0"
+    return dict(errs, oracle_s=oracle_s)
+
+
+def solves_per_s(fns, B, rounds=4):
+    """Steady-state solves/s (best, median) of each of ``fns`` (name ->
+    callable), timed in turns, the order alternating per round."""
+    names = list(fns)
+    dts = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[n]()
+            torch.cuda.synchronize()
+            dts[n].append(time.perf_counter() - t0)
+    return {n: (B / min(d), B / float(np.median(d))) for n, d in dts.items()}
+
+
+def parity_solve_phase(sharp, flat, ref_c, ref_s, x0, motion, tally):
+    """batch_odometry_solve(parity_mode=True) at B = 512 on the bench problem."""
+    from cooper_mapper_torch.config import OdometryConfig
+    from cooper_mapper_torch.ops import odometry
+
+    cfg = OdometryConfig()
+    B = x0.shape[0]
+    log(f"[25] odometry parity mode: batch_odometry_solve(parity_mode=True), B={B}, the bench "
+        f"problem, default OdometryConfig")
+    solve = lambda x, parity: odometry.batch_odometry_solve(sharp, flat, ref_c, ref_s, x, cfg,
+                                                            parity_mode=parity)
+    (x, st), launches, merges = counted(tally, lambda: solve(x0, True))
+    n_blocks = -(-cfg.max_iterations // cfg.refresh_every)
+    expected = {"nn1": 2 * n_blocks, "nn1_masked": n_blocks, "bc_races": n_blocks,
+                "fused_races": 0, "merge_min": 0, "knn": 0}
+    log(f"    launches {launches} (expected {expected}); split with a merge {merges}")
+    if launches != expected:
+        fail("the parity odometry path did not launch every race kernel as expected")
+    if not torch.isfinite(x).all():
+        fail("non-finite parity lanes")
+    te, re_ = lane_errors(x, motion)
+    log(f"    all {B} lanes finite; degenerate {int(st.is_degenerate.sum())}, converged "
+        f"{int(st.converged.sum())}; vs ground truth (information: the -0.05 under-relaxation "
+        f"leaves a partial step after 25 iterations) translation max {float(te.max()):.4f} m, "
+        f"rotation max {float(re_.max()):.4f} rad")
+    x_cpu, _ = odometry.batch_odometry_solve(
+        to_cpu(sharp, CPU_LANES), to_cpu(flat, CPU_LANES), to_cpu(ref_c), to_cpu(ref_s),
+        x0[:CPU_LANES].cpu(), cfg, parity_mode=True)
+    dx = float((x[:CPU_LANES].cpu() - x_cpu).abs().max())
+    log(f"    lanes 0..{CPU_LANES - 1} vs the CPU plain-version run: max |dx| {dx:.3g} "
+        f"(tolerance {CPU_TOL})")
+    if not dx <= CPU_TOL:
+        fail("card and CPU parity solves disagree")
+    rng = np.random.RandomState(1)
+    xr = torch.from_numpy((0.02 * rng.randn(B, 6)).astype(np.float32)).to(x0.device)
+    sps = solves_per_s({"parity": lambda: solve(xr, True), "native": lambda: solve(xr, False)}, B)
+    log("    steady state, in turns: " + "; ".join(
+        f"{n} {v[0]:.1f} solves/s best, {v[1]:.1f} median" for n, v in sps.items()))
+    return sps
+
+
+def parity_drive_phase(cfg, sweeps, truth, tally, device):
+    """models/laser_odometry over the single-stream sweeps in parity mode."""
+    from cooper_mapper_torch.models import laser_odometry
+    from cooper_mapper_torch.ops import features
+
+    reg = cfg.registration
+    log(f"[26] laser_odometry.step(parity_mode=True) over phase 9's {len(sweeps)} sweeps, "
+        f"default PipelineConfig's registration and odometry")
+    race = {"nn1": 10, "nn1_masked": 5, "bc_races": 5}
+    race_merges = split_race_merges(cfg, race["bc_races"], device)
+    feats = [features.extract_features(sw, reg) for sw in sweeps]
+    st = laser_odometry.init_step(laser_odometry.create(reg.max_less_sharp, reg.max_less_flat,
+                                                        device), feats[0], cfg.odometry,
+                                  parity_mode=True)
+    poses, ms = [], []
+    for i, fc in enumerate(feats[1:], 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (st, out), launches, merges = counted(
+            tally, lambda: laser_odometry.step(st, fc, cfg.odometry, parity_mode=True))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        poses.append(out.T_sum.cpu().numpy())
+        got = {k: launches[k] for k in race}
+        got_m = {k: merges[k] for k in race}
+        if got != race or got_m != race_merges or launches["merge_min"] != sum(race_merges.values()):
+            fail(f"parity drive: sweep {i} launched {launches} with merges {merges}, expected "
+                 f"{race} and {race_merges}")
+    poses = np.stack(poses)
+    gt = np.linalg.inv(truth[1]) @ truth[-1]
+    err = float(np.linalg.norm(poses[-1][:3, 3] - gt[:3, 3]))
+    log(f"    per sweep {race} race launches, merges {race_merges}; ms per odometry step "
+        f"{ms_stat(ms[2:])}; final position {poses[-1][:3, 3].round(4).tolist()} vs the "
+        f"simulator's {gt[:3, 3].round(4).tolist()}: error {err:.4f} m (information)")
+    if not np.isfinite(poses).all():
+        fail("the parity drive gave a non-finite pose")
+    return dict(err=err, ms=ms)
+
+
+def map_scene(device):
+    """tests/test_parity_golden.py::map_scene with the port's simulator and
+    extractor at its 16 x 512: sweep 0's voxel-filtered features at ground
+    truth, jittered 1 cm, form the map; sweep 1's are solved from a guess
+    perturbed off the true pose."""
+    from cooper_mapper_torch.config import RegistrationConfig
+    from cooper_mapper_torch.io import sim
+    from cooper_mapper_torch.ops import features
+    from cooper_mapper_torch.ops.voxel import voxel_downsample
+    from cooper_mapper_torch.utils import twist
+
+    world = sim.make_room_world(size=(24.0, 4.0, 30.0), n_pillars=6, seed=5, device=device)
+    cfg = RegistrationConfig(n_rings=16, max_points_per_ring=512, max_sharp=128,
+                             max_less_sharp=1024, max_flat=256, max_less_flat=4096)
+    p0 = np.eye(4, dtype=np.float32)
+    p0[1, 3] = 1.5
+    step = np.eye(4, dtype=np.float32)
+    step[2, 3] = 0.3
+    c, s = np.cos(0.02), np.sin(0.02)
+    step[0, 0], step[0, 2], step[2, 0], step[2, 2] = c, s, -s, c
+    p1 = p0 @ step
+    T = lambda p: torch.from_numpy(p).to(device)
+    fc0, fc1 = (features.extract_features(sim.scan_sweep(world, T(p), T(p), 16, 512), cfg)
+                for p in (p0, p1))
+
+    def valid(cl, leaf):
+        d = voxel_downsample(cl, leaf)
+        return d.xyz[d.mask].cpu().numpy()
+
+    world_frame = lambda xyz: (p0[:3, :3] @ xyz.T).T + p0[:3, 3]
+    rng = np.random.RandomState(7)
+    ref_c = world_frame(valid(fc0.less_sharp, 0.2))
+    ref_s = world_frame(valid(fc0.less_flat, 0.4))
+    ref_c = ref_c + 0.01 * rng.randn(*ref_c.shape).astype(np.float32)
+    ref_s = ref_s + 0.01 * rng.randn(*ref_s.shape).astype(np.float32)
+    x_true = twist.from_mat(T(p1)).double().cpu().numpy()
+    x0 = x_true + np.array([0.01, -0.008, 0.012, 0.05, -0.04, 0.06])
+    return dict(ref_c=ref_c, ref_s=ref_s, q_c=valid(fc1.less_sharp, 0.2),
+                q_s=valid(fc1.flat, 0.4), x0=x0, x_true=x_true)
+
+
+def scan_match_parity_phase(corner, surf, ref_c, ref_s, x0, tally, device):
+    """batch_scan_match(parity_mode=True) at B = 64 on the bench problem, then
+    the golden map scene's two variants against the oracle."""
+    from cooper_mapper_torch.config import ScanMatchConfig
+    from cooper_mapper_torch.ops import scan_match as sm
+    from cooper_mapper_torch.utils import cloud
+
+    cfg = ScanMatchConfig()
+    B = x0.shape[0]
+    log(f"[27] scan-to-map parity mode: batch_scan_match(parity_mode=True), B={B}, the bench "
+        f"problem of phase 6, default ScanMatchConfig")
+    corner_b, surf_b = tile(corner, B), tile(surf, B)
+    res, launches, merges = counted(
+        tally, lambda: sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, x0, cfg,
+                                           parity_mode=True))
+    expected = {"nn1": 0, "nn1_masked": 0, "bc_races": 0, "fused_races": 0, "merge_min": 0,
+                "knn": 2 * (cfg.max_iterations + 1)}
+    log(f"    launches {launches} (expected {expected}); split with a merge {merges}")
+    if launches != expected:
+        fail("the scan-to-map parity path did not launch the k-NN kernel as expected")
+    if not torch.isfinite(res.x).all():
+        fail("non-finite scan-to-map parity lanes")
+    res_cpu = sm.batch_scan_match(to_cpu(corner_b, CPU_LANES), to_cpu(surf_b, CPU_LANES),
+                                  to_cpu(ref_c), to_cpu(ref_s), x0[:CPU_LANES].cpu(), cfg,
+                                  parity_mode=True)
+    dx = float((res.x[:CPU_LANES].cpu() - res_cpu.x).abs().max())
+    log(f"    all {B} lanes finite; success {int(res.success.sum())}, degenerate "
+        f"{int(res.is_degenerate.sum())}; lanes 0..{CPU_LANES - 1} vs the CPU: max |dx| {dx:.3g} "
+        f"(tolerance {CPU_TOL})")
+    if not dx <= CPU_TOL:
+        fail("card and CPU scan-to-map parity solves disagree")
+
+    oracle = load_oracle()
+    scene = map_scene(device)
+    f64 = lambda a: a.astype(np.float64)
+    mk = lambda a, cap: cloud.from_points(a, capacity=cap, device=device)
+    args = (mk(scene["q_c"], 256), mk(scene["q_s"], 512), mk(scene["ref_c"], 1024),
+            mk(scene["ref_s"], 4096), torch.from_numpy(scene["x0"].astype(np.float32)).to(device))
+    log(f"    map scene (tests/test_parity_golden.py::map_scene, the port's simulator and "
+        f"extractor at 16 x 512): map {len(scene['ref_c'])} / {len(scene['ref_s'])}, frame "
+        f"{len(scene['q_c'])} / {len(scene['q_s'])} points")
+    out = {}
+    for thr in (10.0, 100.0):
+        cfg_g = ScanMatchConfig(score_threshold=50.0, eig_threshold=thr)
+        card_V = []
+        eigh = torch.linalg.eigh
+
+        def recording_eigh(A):
+            w, V = eigh(A)
+            card_V.append(V[0].double().cpu().numpy())
+            return w, V
+
+        def port(k):
+            torch.linalg.eigh = recording_eigh
+            try:
+                return sm.scan_match(*args, dataclasses.replace(cfg_g, max_iterations=k),
+                                     parity_mode=True)
+            finally:
+                torch.linalg.eigh = eigh
+        xs, _, _ = counted(tally, lambda: [port(k).x.double().cpu().numpy() for k in SM_GOLDEN_KS])
+        run = lambda: oracle.scan_match_scan(f64(scene["ref_c"]), f64(scene["ref_s"]),
+                                             f64(scene["q_c"]), f64(scene["q_s"]), scene["x0"],
+                                             max_iterations=10, score_threshold=50.0,
+                                             eig_threshold=thr)
+        np_eigh, agree = np.linalg.eigh, []
+
+        def card_signed_eigh(M):
+            # the 6x6 projector eigh only: numpy's vectors, signed as the card's
+            w, V = np_eigh(M)
+            if M.shape == (6, 6):
+                sign = np.sign((V * card_V[0]).sum(0))
+                agree.append(sign > 0)
+                V = V * sign
+            return w, V
+        golden = run()
+        np.linalg.eigh = card_signed_eigh
+        try:
+            golden_card = run()
+        finally:
+            np.linalg.eigh = np_eigh
+        errs = lambda g: [float(np.abs(x - g.trace[min(k, len(g.trace)) - 1].x).max())
+                          for k, x in zip(SM_GOLDEN_KS, xs)]
+        direct, signed = errs(golden), errs(golden_card)
+        same_signs = bool(agree[0].all())
+        degenerate = golden.trace[0].is_degenerate
+        log(f"    eig_threshold {thr}: degenerate {degenerate}; the card's iteration-0 eigenvectors "
+            f"agree in sign with numpy's per column {agree[0].tolist()}; max |x - oracle| at "
+            f"k = {list(SM_GOLDEN_KS)}: {[f'{e:.3g}' for e in direct]}, against the oracle run "
+            f"with the card's signs {[f'{e:.3g}' for e in signed]} (tolerance {SM_GOLDEN_TOL}); "
+            f"oracle accepted {golden.accepted}")
+        gate = direct if (same_signs or not degenerate) else signed
+        if max(gate) > SM_GOLDEN_TOL:
+            fail(f"the parity scan match at eig_threshold {thr} left the oracle's trace")
+        out[thr] = dict(direct=max(direct), signed=max(signed), signs=agree[0].tolist(),
+                        degenerate=degenerate)
+    return dict(dx=dx, scenes=out)
+
+
+def dewarp_passes_phase(quick_ate, device, n_sweeps=49):
+    """README's Quick start figure eight with dewarp_passes=2, then the
+    pipeline at _small_cfg with dewarp_passes=2 on the card and the CPU."""
+    from cooper_mapper_torch import config as C
+    from cooper_mapper_torch.io import evaluation, sim
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.ops.features import Sweep
+
+    log("[28] dewarp_passes=2: README's Quick start figure eight (phase 16's drive), "
+        "PipelineConfig(odometry=OdometryConfig(dewarp_passes=2)), mode 'mapping'")
+    base = C.PipelineConfig()
+    cfg = dataclasses.replace(base, odometry=dataclasses.replace(base.odometry, dewarp_passes=2))
+    world = sim.make_room_world(seed=1, device=device)
+    poses = sim.figure_eight_trajectory(n_sweeps + 1)
+    sweeps = [sim.scan_sweep(world, torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]))
+              for i in range(n_sweeps)]
+    pipe = SlamPipeline(cfg, mode="mapping", device=device)
+    results, ms, launches, _ = drive_pipeline(pipe, sweeps, "dewarp_passes=2 Quick start")
+    est, odo = np.stack(pipe.trajectory), np.stack(pipe.odom_trajectory)
+    ate, ate_odo = evaluation.pipeline_ate(est, poses), evaluation.pipeline_ate(odo, poses)
+    log(f"    per sweep twice phase 16's race launches (checked); ms per sweep {ms_stat(ms)}; "
+        f"pipeline_ate rmse mapping {ate.rmse:.4f} m, odometry only {ate_odo.rmse:.4f} m, against "
+        f"dewarp_passes=1 (phase 16) {quick_ate['ate']:.4f} / {quick_ate['ate_odo']:.4f} m")
+    if not (np.isfinite(est).all() and np.isfinite(odo).all()):
+        fail("the dewarp_passes=2 drive gave a non-finite pose")
+
+    small = reduced_pipeline_cfg(C)
+    small = dataclasses.replace(small, odometry=dataclasses.replace(small.odometry,
+                                                                    dewarp_passes=2))
+    sweeps_cpu = simulate_reduced("cpu")
+    card = [Sweep(s.xyz.to(device), s.mask.to(device), s.rel_time.to(device)) for s in sweeps_cpu]
+    merged = {}
+    for dev, sw in ((device, card), ("cpu", sweeps_cpu)):
+        pipe = SlamPipeline(small, "mapping", device=dev)
+        res = drive_pipeline(pipe, sw, f"reduced dewarp_passes=2 {dev}", check_launches=dev != "cpu")
+        merged[dev] = np.stack([r.merged_pose for r in res[0]])
+    dx = float(np.abs(merged[device] - merged["cpu"]).max())
+    log(f"    _small_cfg with dewarp_passes=2, mapping, _simulate(6) on the CPU: card vs CPU max "
+        f"|dW| {dx:.3g} (tolerance {CPU_TOL})")
+    if not dx <= CPU_TOL:
+        fail("the dewarp_passes=2 pipeline on the card and on the CPU disagree")
+    return dict(ate=ate.rmse, ate_odo=ate_odo.rmse, dx=dx, ms=ms)
+
+
+def features_debug_phase(device):
+    """extract_features_debug at 16 x 1024 on the card, against
+    extract_features on the card and against the CPU on the same sweep."""
+    from cooper_mapper_torch.config import RegistrationConfig
+    from cooper_mapper_torch.io import sim
+    from cooper_mapper_torch.ops import features as F
+
+    log("[29] extract_features_debug on the bench sweep (16 x 1024, make_room_world(seed=42), "
+        "simulated on the CPU), on the card and on the CPU")
+    world = sim.make_room_world(seed=WORLD_SEED, device="cpu")
+    p0 = torch.eye(4)
+    p0[1, 3] = 1.5
+    sw_cpu = sim.scan_sweep(world, p0, p0, RINGS, WIDTH)
+    sw = F.Sweep(sw_cpu.xyz.to(device), sw_cpu.mask.to(device), sw_cpu.rel_time.to(device))
+    cfg = RegistrationConfig(n_rings=RINGS, max_points_per_ring=WIDTH)
+    fc, dbg = F.extract_features_debug(sw, cfg)
+    plain = F.extract_features(sw, cfg)
+    fields = ("xyz", "mask", "ring", "rel_time")
+    same = all(torch.equal(getattr(getattr(fc, n), f), getattr(getattr(plain, n), f))
+               for n in ("sharp", "less_sharp", "flat", "less_flat") for f in fields)
+    counts = (int(dbg.sharp_picked.sum()), int(fc.sharp.mask.sum()), int(dbg.flat_picked.sum()),
+              int(fc.flat.mask.sum()))
+    enums = (set(dbg.status.unique().tolist()) <= {F.BLIND_BLOCK, F.NEAR_BLOCK, F.EDGE_BROKEN,
+                                                    F.STATUS_NONE}
+             and set(dbg.label.unique().tolist()) <= {F.MESSY, F.CLS_SURFACE_FLAT,
+                                                      F.CLS_CORNER_SHARP, F.CLS_ONESIDE_FLAT}
+             and int(dbg.region_id.min()) >= -1
+             and int(dbg.region_id.max()) < cfg.n_feature_regions)
+    log(f"    clouds bit-identical to extract_features' {same}; picked sharp / cloud "
+        f"{counts[0]} / {counts[1]}, flat {counts[2]} / {counts[3]}; enums in their sets {enums}")
+    if not (same and counts[0] == counts[1] and counts[2] == counts[3] and enums):
+        fail("extract_features_debug on the card is inconsistent")
+    _, dbg_cpu = F.extract_features_debug(sw_cpu, cfg)
+    differ = {f: int((getattr(dbg, f).cpu() != getattr(dbg_cpu, f)).sum())
+              for f in ("curvature", "status", "label", "region_id", "sharp_picked", "flat_picked")}
+    rel = float(((dbg.curvature.cpu() - dbg_cpu.curvature).abs()
+                 / dbg_cpu.curvature.abs().clamp(min=1e-30)).max())
+    flips = (dbg.label.cpu() != dbg_cpu.label).any(-1)
+    picks_elsewhere = any(bool(((getattr(dbg, f).cpu() != getattr(dbg_cpu, f)).any(-1)
+                                & ~flips).any()) for f in ("sharp_picked", "flat_picked"))
+    log(f"    card vs CPU, points that differ per field {differ} of {dbg.label.numel()}; curvature "
+        f"max relative difference {rel:.3g} (tolerance 1e-5); status and region ids must be "
+        f"equal, labels may differ on 0.1% of the points (an ulp of arccos / cos decides a "
+        f"threshold), the picks only in rings of such a label: picks elsewhere {picks_elsewhere}")
+    if (rel > 1e-5 or differ["status"] or differ["region_id"]
+            or differ["label"] > 1e-3 * dbg.label.numel() or picks_elsewhere):
+        fail("extract_features_debug on the card disagrees with the CPU")
+    return differ
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -2180,6 +2648,14 @@ def main():
     save_run = graph_save_phase(gpipe, gdrive, device)
     del gpipe
     graph_dx = graph_card_vs_cpu_phase(device)
+    # the parity modes; every launch of their solves is tallied under "parity"
+    parity = {}
+    golden = golden_odometry_phase((sharp1, flat1, ref_c, ref_s), parity, device)
+    parity_sps = parity_solve_phase(sharp, flat, ref_c, ref_s, x0, motion, parity)
+    parity_drive = parity_drive_phase(ss_cfg, sweeps, truth, parity, device)
+    sm_parity = scan_match_parity_phase(corner, surf, map_c, map_s, x0_sm, parity, device)
+    passes2 = dewarp_passes_phase(quick, device)
+    debug_differ = features_debug_phase(device)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -2212,6 +2688,8 @@ def main():
         # inside the graph stage of the loop drive (phase 20): ICP, the fine match
         row["graph"] = dict(launches=gdrive["launches"][row["name"]],
                             merges=gdrive["merges"].get(row["name"], 0))
+        # the parity phases' solves (24-27)
+        row["parity"] = parity[row["name"]]
         if row["name"] in single_stream:
             # launches: the single-stream drive's on the split route
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
@@ -2220,7 +2698,10 @@ def main():
     pg_stat = lambda r: (f"{r['solver']} n={r['n']} {r['iters_per_s'][0]:.2f} / "
                          f"{r['iters_per_s'][1]:.2f} LM iterations/s, "
                          f"{min(r['ms']):.1f} ms per optimize")
-    log(f"[24] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    sm_scenes = "; ".join(f"eig {t:.0f}: degenerate {v['degenerate']}, signs {v['signs']}, "
+                          f"|dx| direct {v['direct']:.3g} / card-signed {v['signed']:.3g}"
+                          for t, v in sm_parity["scenes"].items())
+    log(f"[30] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
         + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
@@ -2239,7 +2720,15 @@ def main():
         f"{LOOP_SCORE}, graph stage {gdrive['stage_ms']:.1f} ms per call, ms per sweep "
         f"{min(gdrive['ms']):.1f} / {float(np.median(gdrive['ms'])):.1f}; ICP card vs CPU "
         f"{icp_run['icp_dT']:.3g}; saved map localizes at {save_run['loc_err']:.4f} m; graph "
-        f"pipeline card vs CPU {graph_dx:.3g}; on {name} ({smi})")
+        f"pipeline card vs CPU {graph_dx:.3g}; parity: golden odometry trace |dx| split "
+        f"{golden['split']:.3g} / fused {golden['fused']:.3g} (oracle {golden['oracle_s']:.2f} s), "
+        f"odometry parity {parity_sps['parity'][0]:.1f} / {parity_sps['parity'][1]:.1f} solves/s "
+        f"against native {parity_sps['native'][0]:.1f} / {parity_sps['native'][1]:.1f} at "
+        f"B={BATCH}, parity drive final error {parity_drive['err']:.4f} m, scan-to-map parity "
+        f"card vs CPU {sm_parity['dx']:.3g}, map scene {sm_scenes}; dewarp_passes=2 Quick start "
+        f"ATE {passes2['ate']:.4f} / odometry {passes2['ate_odo']:.4f} m (1 pass "
+        f"{quick['ate']:.4f} / {quick['ate_odo']:.4f}), reduced card vs CPU {passes2['dx']:.3g}; "
+        f"extract_features_debug card vs CPU differing points {debug_differ}; on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -57,15 +57,11 @@ def _project_to_end(x, c: Cloud) -> Cloud:
                  torch.zeros_like(c.rel_time))
 
 
-def _check_parity(parity_mode: bool):
-    if parity_mode:
-        raise NotImplementedError("the odometry parity_mode is not ported yet")
-
-
 def init_step(state: OdometryState, fc: FeatureClouds, cfg: OdometryConfig,
               parity_mode: bool = False) -> OdometryState:
-    """First sweep: store clouds, no solve (process(), :295-303)."""
-    _check_parity(parity_mode)
+    """First sweep: store clouds, no solve (process(), :295-303).
+    ``parity_mode`` is accepted as in the JAX package; the first sweep does
+    not solve, so it changes nothing."""
     return OdometryState(
         last_corner=cloud_lib.compact(fc.less_sharp, state.last_corner.capacity),
         last_surf=cloud_lib.compact(fc.less_flat, state.last_surf.capacity),
@@ -77,10 +73,10 @@ def init_step(state: OdometryState, fc: FeatureClouds, cfg: OdometryConfig,
 def step(state: OdometryState, fc: FeatureClouds, cfg: OdometryConfig,
          parity_mode: bool = False):
     """One odometry sweep: solve, accumulate, roll the reference clouds.
-    Returns (state', OdometryOutput)."""
-    _check_parity(parity_mode)
+    ``parity_mode=True`` solves with the reference's iteration dynamics
+    (``ops/odometry``).  Returns (state', OdometryOutput)."""
     x, diag = odometry_ops.odometry_solve(fc.sharp, fc.flat, state.last_corner,
-                                          state.last_surf, state.x_prev, cfg)
+                                          state.last_surf, state.x_prev, cfg, parity_mode)
     T_new = state.T_sum @ twist.to_relative_motion(x)
 
     corner_end = _project_to_end(x, fc.less_sharp)

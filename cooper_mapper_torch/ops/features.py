@@ -24,6 +24,7 @@ from .voxel import voxel_downsample
 EDGE_BROKEN = -2
 NEAR_BLOCK = -3
 BLIND_BLOCK = -4
+STATUS_NONE = 0
 
 # classification labels
 MESSY = 0
@@ -48,6 +49,20 @@ class FeatureClouds:
     less_sharp: Cloud
     flat: Cloud
     less_flat: Cloud
+
+
+@dataclasses.dataclass
+class FeatureDebug:
+    """Per-point extraction internals, the /point_blind, /point_block,
+    /point_slop and /point_curvature debug clouds (ScanRegistration.cpp:81-86,
+    679-682) as grids.  Every field is [R, W], aligned with the Sweep."""
+
+    curvature: torch.Tensor     # squared-norm curvature (setRegionBuffersFor)
+    status: torch.Tensor        # int32: BLIND_BLOCK / NEAR_BLOCK / EDGE_BROKEN / STATUS_NONE
+    label: torch.Tensor         # int32 classification (pointClassify)
+    region_id: torch.Tensor     # azimuthal region id, -1 outside the feature span
+    sharp_picked: torch.Tensor  # bool: the point entered the sharp cloud
+    flat_picked: torch.Tensor   # bool: the point entered the flat cloud
 
 
 def _shift(x, k, fill):
@@ -245,8 +260,11 @@ def _mask_cloud(xyz, rel_time, ring_ids, mask2d, capacity):
     return cloud_lib.compact(c, capacity)
 
 
-def extract_features(sweep: Sweep, cfg: RegistrationConfig) -> FeatureClouds:
-    """Full feature extraction for one sweep, on the sweep's device."""
+def extract_features_debug(sweep: Sweep, cfg: RegistrationConfig):
+    """``extract_features`` plus the per-point internals, the optional
+    classification debug clouds of the reference (ScanRegistration.cpp:81-86).
+    Returns (FeatureClouds, FeatureDebug); ``extract_features`` returns the
+    clouds of this same computation."""
     xyz, mask, rel_time = sweep.xyz, sweep.mask, sweep.rel_time
     R, W = mask.shape
     cr = cfg.curvature_region
@@ -297,4 +315,11 @@ def extract_features(sweep: Sweep, cfg: RegistrationConfig) -> FeatureClouds:
     flat = _mask_cloud(xyz, rel_time, ring_ids, flat_mask, cfg.max_flat)
     less_flat_raw = _mask_cloud(xyz, rel_time, ring_ids, less_flat_mask, cfg.max_less_flat)
     less_flat = voxel_downsample(less_flat_raw, cfg.less_flat_filter_size)
-    return FeatureClouds(sharp, less_sharp, flat, less_flat)
+    dbg = FeatureDebug(curvature=curv, status=status, label=cls, region_id=region_id,
+                       sharp_picked=sharp_mask, flat_picked=flat_mask)
+    return FeatureClouds(sharp, less_sharp, flat, less_flat), dbg
+
+
+def extract_features(sweep: Sweep, cfg: RegistrationConfig) -> FeatureClouds:
+    """Full feature extraction for one sweep, on the sweep's device."""
+    return extract_features_debug(sweep, cfg)[0]

@@ -779,3 +779,94 @@ def test_icp_on_card_equals_cpu(cuda):
     assert float((T.cpu() - Tc).abs().max()) <= 1e-4
     assert int(n) == int(n_c)
     assert abs(float(rmse) - float(rmse_c)) <= 1e-5
+
+
+def _spd_batch(rng, B, n_small=0):
+    """B SPD 6x6 systems, eigenvalues in [20, 100]; the first ``n_small``
+    get two well separated eigenvalues below the threshold 10."""
+    A = np.empty((B, 6, 6), np.float32)
+    for b in range(B):
+        V, _ = np.linalg.qr(rng.randn(6, 6))
+        lam = rng.uniform(20, 100, 6)
+        if b < n_small:
+            lam[:2] = [0.5, 3.0]
+        A[b] = (V * lam) @ V.T
+    return torch.from_numpy(A), torch.from_numpy((5 * rng.randn(B, 6)).astype(np.float32))
+
+
+def _without_host_sync(fn):
+    """``fn()`` with PyTorch's synchronising calls turned into errors."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_lu_solve_on_card_equals_cpu_without_a_host_sync(cuda):
+    # the parity modes' LU solve: lu_factor_ex leaves its info unread, so the
+    # card is not waited for; an exactly singular system comes back inf/NaN
+    from cooper_mapper_torch.ops import gauss_newton as gn
+
+    A, b = _spd_batch(np.random.RandomState(21), 64)
+    v = torch.arange(1.0, 7.0)
+    A[-1] = torch.outer(v, v) * 1e6                  # rank one: an exact zero pivot
+    A_c, b_c = A.to(cuda), b.to(cuda)
+    got = _without_host_sync(lambda: gn.solve_6x6(A_c, b_c, spd=False))
+    want = gn.solve_6x6(A, b, spd=False)
+    torch.testing.assert_close(got[:-1].cpu(), want[:-1], rtol=1e-4, atol=1e-5)
+    assert torch.equal(torch.isfinite(got[-1]).cpu(), torch.isfinite(want[-1]))
+    assert not torch.isfinite(got[-1]).all()
+
+
+@pytest.mark.cuda
+def test_reference_projector_on_card(cuda):
+    # P = V^T Vz follows each eigenvector's sign: with D = diag(sign(v_card .
+    # v_cpu)), V_card = V_cpu D, and zeroing rows commutes with scaling
+    # columns, so P_card = D P_cpu D on every system whatever signs
+    # cuSOLVER returns.  Between the two eigensolvers the f32 eigenvectors
+    # of the small eigenvalues (0.5 and 3.0: a gap of 2.5 against a norm of
+    # ~100) differ by ~eps * 100 / 2.5 ~ 5e-6 per entry, so P by ~1e-5:
+    # compared at 1e-4
+    from cooper_mapper_torch.ops import gauss_newton as gn
+
+    A, _ = _spd_batch(np.random.RandomState(22), 64, n_small=48)
+    P, deg = gn.degeneracy_projector(A.to(cuda), 10.0, reference_mode=True)
+    P_cpu, deg_cpu = gn.degeneracy_projector(A, 10.0, reference_mode=True)
+    assert torch.equal(deg.cpu(), deg_cpu), (deg.cpu(), deg_cpu)
+    assert int(deg_cpu.sum()) == 48
+    V = torch.linalg.eigh(A.to(cuda))[1].cpu()
+    D = torch.sign((V * torch.linalg.eigh(A)[1]).sum(-2))
+    assert bool((D != 0).all())
+    agree = (D > 0).all(-1)
+    want = D[..., :, None] * P_cpu * D[..., None, :]
+    print(f"card eigenvectors with LAPACK's signs in {int(agree.sum())} of 64 systems; "
+          f"card P vs D P_cpu D: {float((P.cpu() - want).abs().max())}; card vs CPU P "
+          f"where the signs agree: "
+          f"{float((P.cpu() - P_cpu)[agree].abs().max()) if agree.any() else None}")
+    torch.testing.assert_close(P.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reference_mode", [True, False])
+def test_gn_steps_on_card_make_no_host_sync(cuda, reference_mode):
+    # the GN loop's steps after iteration 0 (whose eigh is the one host
+    # read), in both modes, equal to the CPU's from the same projector
+    from cooper_mapper_torch.ops import gauss_newton as gn
+
+    A, b = _spd_batch(np.random.RandomState(23), 32, n_small=8)
+    P, deg = gn.degeneracy_projector(A, 10.0, reference_mode)
+    kw = dict(eig_threshold=10.0, delta_r_abort=0.1, delta_t_abort=0.1, min_matched=10,
+              reference_mode=reference_mode)
+
+    def steps(P, deg, A, b):
+        st = gn.gn_init(torch.zeros_like(b))
+        st = gn.GNState(st.x, P, deg, st.converged, st.n_matched, st.iter_used)
+        for it in (1, 2, 3):
+            st = gn.gn_step(st, A, b, torch.full_like(b[:, 0], 50.0), it, **kw)
+        return st.x
+    on_card = [t.to(cuda) for t in (P, deg, A, b)]          # the copies wait for the host
+    got = _without_host_sync(lambda: steps(*on_card))
+    torch.testing.assert_close(got.cpu(), steps(P, deg, A, b), rtol=1e-4, atol=1e-5)

@@ -72,7 +72,7 @@ def test_jacobian_rows_match():
     s = rng.uniform(0, 1, (2, 32)).astype(np.float32)
     coeff = rng.randn(2, 32, 3).astype(np.float32)
     rows = todo._exact_jacobian_rows(*map(torch.from_numpy, (x, pts, s, coeff))).numpy()
-    rigid = todo._exact_jacobian_rows_rigid(*map(torch.from_numpy, (x, pts, coeff))).numpy()
+    rigid = todo._reference_jacobian_rows(*map(torch.from_numpy, (x, pts, coeff))).numpy()
     for b in range(2):
         np.testing.assert_allclose(rows[b], np.asarray(jodo._exact_jacobian_rows(
             jnp.asarray(x[b]), jnp.asarray(pts[b]), jnp.asarray(s[b]), jnp.asarray(coeff[b]))),
@@ -133,9 +133,21 @@ def test_parity_only_options_raise(field, value):
         todo.odometry_solve(*clouds, torch.zeros(6), TOdo(**{field: value}))
 
 
-def test_unported_options_raise():
-    prev, cur = _features(np.eye(4, dtype=np.float32))
+def test_dewarp_passes_matches_jax():
+    """``dewarp_passes=2``: each lane equals the JAX package's two-pass
+    solve (a yawing motion, where the second de-warp moves the answer)."""
+    B = 2
+    prev, cur = _features(_pose(x=-0.2, y=0.03, z=0.3, yaw=-0.06))
+    x0 = (0.02 * np.random.RandomState(3).randn(B, 6)).astype(np.float32)
     tc = lambda c: bridge.cloud(c, "cpu")
-    with pytest.raises(NotImplementedError):
-        todo.odometry_solve(tc(cur.sharp), tc(cur.flat), tc(prev.less_sharp),
-                            tc(prev.less_flat), torch.zeros(6), TOdo(dewarp_passes=2))
+    solve_t = lambda passes: todo.batch_odometry_solve(
+        _tile_t(tc(cur.sharp), B), _tile_t(tc(cur.flat), B), tc(prev.less_sharp),
+        tc(prev.less_flat), torch.from_numpy(x0), TOdo(dewarp_passes=passes))
+    xt, stt = solve_t(2)
+    xj, stj = jodo.batch_odometry_solve(
+        _tile_j(cur.sharp, B), _tile_j(cur.flat, B), prev.less_sharp, prev.less_flat,
+        jnp.asarray(x0), JOdo(dewarp_passes=2))
+    assert torch.isfinite(xt).all()
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=SOLVE_ATOL)
+    np.testing.assert_array_equal(stt.converged.numpy(), np.asarray(stj.converged))
+    assert float((xt - solve_t(1)[0]).abs().max()) > 1e-5

@@ -234,12 +234,23 @@ def test_gate_rejects_garbage_like_jax(pose_offset_scene):
     assert not t["success"] and not bool(res_j.success)
 
 
-@pytest.mark.parametrize("cfg", [dict(parity_mode=True), dict(cfg=TSM(kernel_backend="pallas"))],
-                         ids=["parity_mode", "kernel_backend"])
+@pytest.mark.parametrize("cfg", [dict(cfg=TSM(kernel_backend="pallas"))], ids=["kernel_backend"])
 def test_unported_options_raise(pose_offset_scene, cfg):
     clouds, x0, _, _ = pose_offset_scene
     with pytest.raises(NotImplementedError):
         tsm.scan_match(*map(_cloud, clouds), _t(x0), **cfg)
+
+
+def test_parity_mode_matches_jax(pose_offset_scene):
+    """The parity solve equals the JAX package's and differs from the
+    native one (tests/test_torch_parity_golden.py holds it to the C++
+    oracle)."""
+    clouds, x0, _, _ = pose_offset_scene
+    res_j = jsm.scan_match(*clouds, jnp.asarray(x0), JSM(**CFG_SM), parity_mode=True)
+    res_t = tsm.scan_match(*map(_cloud, clouds), _t(x0), TSM(**CFG_SM), parity_mode=True)
+    t = _compare(res_t, res_j)
+    native = bridge.to_numpy(tsm.scan_match(*map(_cloud, clouds), _t(x0), TSM(**CFG_SM)))
+    assert t["converged"] and np.abs(t["x"] - native["x"]).max() > 0
 
 
 # ---------------------------------------------------------------------------

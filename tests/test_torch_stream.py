@@ -270,8 +270,12 @@ def test_odometry_init_step_and_steps_match_jax(stream):
         _assert_cloud(st.last_surf, want_st.last_surf)
     # 2 x 0.35 m forward (the sensor's +z), from the simulator
     assert abs(float(st.T_sum[2, 3]) - 0.7) < 0.05
-    with pytest.raises(NotImplementedError):
-        tlo.step(st, fts[2], cfg.odometry, parity_mode=True)
+    # parity mode, ported: a step from the JAX package's state equals its parity step
+    _, out_p = tlo.step(bridge.odometry_state(stream["states"][1], "cpu"), fts[2], cfg.odometry,
+                        parity_mode=True)
+    _, want_p = jlo.step(stream["states"][1], stream["feats"][2], cfg.odometry, parity_mode=True)
+    np.testing.assert_allclose(out_p.T_sum.numpy(), np.asarray(want_p.T_sum), atol=POSE_TOL)
+    np.testing.assert_allclose(out_p.x.numpy(), np.asarray(want_p.x), atol=POSE_TOL)
     # a step from the JAX package's state, bridged, lands on its next state
     _, out = tlo.step(bridge.odometry_state(stream["states"][1], "cpu"), fts[2], cfg.odometry)
     np.testing.assert_allclose(out.T_sum.numpy(), np.asarray(stream["outs"][1].T_sum),
