@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Six paths run, each through the entry points a user calls.
+Seven paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -46,6 +46,14 @@ the -0.05 under-relaxation, the LU solve, the row-zeroing projector) through
 ``batch_scan_match`` with ``parity_mode=True``, held to the float64 C++
 transcription ``tests/ref_oracle.py``; then ``dewarp_passes=2`` through
 ``SlamPipeline`` and ``extract_features_debug``.
+
+Out-of-core map and host I/O: ``SlamPipeline`` with ``matcher.dynamic_mode``
+over tests/test_long_run.py's corridor at full width (cubes paged to disk by
+the native pager, built from ``native/cube_pager.cpp``), the offline map
+converter (``io/feature_extracter``, the k-NN kernel at k = 10 over a whole
+map cloud) and localization on its output, and the ``run_offline.py --bag``
+flow (``io/rosbag``, ``organize_unordered`` and the native binner, then the
+pipeline), with one sweep traced by ``utils/profiling.trace``.
 
 Phases, each announced on its own line as it starts:
 
@@ -215,7 +223,45 @@ Phases, each announced on its own line as it starts:
    relative, status and region ids equal, labels different on at most 0.1%
    of the points (an ulp of arccos / cos decides a threshold) and the picks
    only in the rings of such a label, with the differing points printed;
-30. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+30. ``SlamPipeline(mode="mapping")`` with ``matcher.dynamic_mode`` over
+   tests/test_long_run.py's corridor at 16 x 1024 (``make_room_world(size=
+   (30, 4, 40), n_pillars=8, seed=11)``, 60 sweeps out and 40 back at 0.5 m
+   per sweep), the default config but for its ``_cfg`` map (5 x 3 x 5 cubes
+   of 8 m, margin 1, capacities 768 / 1536, surround 6144 / 12288) and
+   matcher (frames 2048 / 4096, ``dedup_stride=1``), ``mapping_stride=2``
+   and ``score_threshold=50``: the drive's launches per sweep as phase 13's;
+   its gates (at least 4 cubes flushed and 2 loaded, ``index2.txt`` and 4
+   ``.pcd`` files after ``save_map``, no cube at capacity, ATE rmse below
+   0.25 m, late-run success above 0.55, the native pager); the paging
+   stage's ms per call and ms per sweep; then the forward leg (60 sweeps:
+   the JAX test's 30 flush nothing) again with the static map: poses within
+   1e-5 of the dynamic run's, which flushed cubes there, ms per sweep of
+   each; then
+   the native and the numpy pager out and back on the card: the same
+   surround points, every point back;
+31. the offline converter: phase 16's 49 sweeps placed by its merged poses,
+   ``write_pcd``, ``convert_map_for_localization`` at the default
+   ``MapConfig`` (one k-NN launch, k = 10, over the whole cloud); the kernel
+   at that shape against ``knn_plain`` on 4096 of its queries, bit for bit;
+   the card's labels against the CPU's from the same neighbours (at most
+   0.1% differ, each within 1e-4 of a threshold); the surf and corner
+   counts, the cube files and the points the cubes dropped; the kernel's
+   card and device ms beside its bound, the plain version and the library
+   chain (``cdist``, ``topk(10)``) on 1024 queries; then ``load_feature_map``
+   and ``SlamPipeline(mode="localization")`` over the same sweeps from the
+   first merged pose: every pose finite, the steady error printed;
+32. bag replay: phase 9's sweeps as ``PointCloud2`` in the sensor's raw axis
+   order, with ``Imu`` and ``Odometry`` messages, in a bz2 bag, through
+   ``bag_to_npz`` (every message back); each sweep organized by
+   ``organize_unordered`` (VLP16) and ``bin_sweep_native`` (16 x 1024: every
+   binned point within 1.01 deg of its ring's angle, ``rel_time`` monotone
+   per ring), their valid cells and ms per sweep side by side; the replay
+   through ``SlamPipeline`` at ``vlp16()`` with phase 13's launch checks,
+   every pose finite and the final one within 0.3 m of the simulator's;
+33. one map-solving sweep of a dynamic-mode drive (the corridor's first 5)
+   inside ``utils/profiling.trace``: the Chrome trace names the race kernels
+   and the k-NN kernel;
+34. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
@@ -226,9 +272,10 @@ Phases, each announced on its own line as it starts:
    route's drive's, at S = 66 of 1024 queries with S = 32 under
    ``more_shapes``; every row's ``pipeline`` holds its launches and merges in
    phase 13's drive, its ``graph`` those inside the graph stage of phase
-   20's drive, and its ``parity`` those of phases 24-27's solves; nn1's ICP
-   shape and the k-NN's fine-match shape of phase 21 are under their
-   ``more_shapes``), then the result line.
+   20's drive, its ``parity`` those of phases 24-27's solves, and its
+   ``host_io`` those of phases 30-33; nn1's ICP shape and the k-NN's
+   fine-match shape of phase 21 and its converter shape of phase 31 are
+   under their ``more_shapes``), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -408,7 +455,8 @@ def device_ms(fn, names, reps=20, tries=3):
     the call launches, and the first group's ms per call by name), from
     ``torch.profiler`` over ``reps`` calls after one warm-up.  A trace that
     lost events (a kernel seen a number of times that is not a multiple of
-    ``reps``) is taken again, up to ``tries`` times."""
+    ``reps``, or none of the named kernels) is taken again, up to ``tries``
+    times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -421,7 +469,8 @@ def device_ms(fn, names, reps=20, tries=3):
         counts = {}
         for e in every:
             counts[e.name] = counts.get(e.name, 0) + 1
-        if all(c % reps == 0 for c in counts.values()):
+        seen = any(k in name for name in counts for k in names)
+        if seen and all(c % reps == 0 for c in counts.values()):
             break
     ev = [e for e in every if any(k in e.name for k in names)]
     ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
@@ -1397,13 +1446,15 @@ def imu_window(i, device):
                                      torch.ones(IMU_SAMPLES, dtype=torch.bool, device=device))
 
 
-def drive_pipeline(pipe, sweeps, label, imu=False, check_launches=True):
+def drive_pipeline(pipe, sweeps, label, imu=False, check_launches=True, start=0):
     """``pipe.process`` over the sweeps (with TestImuFusion's IMU windows when
     ``imu``), every launch counter at 0 first.  Per sweep after the first it
     checks the split route's race launches (as phase 9's, once per de-warp
     pass of ``cfg.odometry.dewarp_passes``) and 2 x 11 k-NN launches where a
-    map solve ran.  Returns (results, ms per sweep from sweep 3 on, the
-    drive's launches with the split searches' merges, the last IMU window)."""
+    map solve ran.  ``start``: the drive's index of the first sweep, where
+    ``sweeps`` continue an earlier call's.  Returns (results, ms per sweep
+    from sweep 3 on, the drive's launches with the split searches' merges,
+    the last IMU window)."""
     on_card = pipe.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     passes = max(pipe.cfg.odometry.dewarp_passes, 1)
@@ -1414,7 +1465,7 @@ def drive_pipeline(pipe, sweeps, label, imu=False, check_launches=True):
     knn_per_solve = 2 * (pipe.cfg.scan_match.max_iterations + 1)
     reset_launches()
     results, ms, window = [], [], None
-    for i, sw in enumerate(sweeps):
+    for i, sw in enumerate(sweeps, start):
         before = read_launches()
         sync()
         t0 = time.perf_counter()
@@ -1594,8 +1645,10 @@ def quick_start_phase(device):
     sync = torch.cuda.synchronize
     sync()
     t0 = time.perf_counter()
+    sweeps = []
     for i in range(49):
         sweep = sim.scan_sweep(world, torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]))
+        sweeps.append(sweep)
         pipe.process(sweep)
     sync()
     wall = time.perf_counter() - t0
@@ -1606,7 +1659,8 @@ def quick_start_phase(device):
     log("    StageTimer report:\n" + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
     if not (np.isfinite(est).all() and np.isfinite(odo).all()):
         fail("the Quick start drive gave a non-finite pose")
-    return dict(ate=ate.rmse, ate_odo=ate_odo.rmse, wall_s=wall)
+    return dict(ate=ate.rmse, ate_odo=ate_odo.rmse, wall_s=wall, sweeps=sweeps, merged=est,
+                poses=poses)
 
 
 def reduced_pipeline_cfg(C, **changes):
@@ -2575,6 +2629,462 @@ def features_debug_phase(device):
     return differ
 
 
+# The out-of-core map, the offline converter and the host I/O (phases 30-33).
+# tests/test_long_run.py's corridor and bounds
+CORRIDOR_OUT, CORRIDOR_BACK, CORRIDOR_STEP_M, CORRIDOR_RAMP = 60, 40, 0.5, 4
+CORRIDOR_ATE, CORRIDOR_SUCCESS = 0.25, 0.55
+TRANSPARENT_TOL = 1e-5                            # TestDynamicEqualsStatic
+BAG_TOL = 0.3                                     # TestRosbag::test_bag_feeds_pipeline
+# the converter: queries held to knn_plain, queries timed, the label gate
+CONVERT_K, CONVERT_CHECKED, CONVERT_TIMED = 10, 4096, 1024
+LABEL_MARGIN, LABEL_SHARE = 1e-4, 1e-3
+
+
+def tally_drive(tally, launches):
+    """Add a drive_pipeline run's launches (with their "merges") to ``tally``."""
+    launches = dict(launches)
+    add_counts(tally, launches, launches.pop("merges"))
+
+
+def corridor_sweeps(device, n_out=CORRIDOR_OUT, n_back=CORRIDOR_BACK):
+    """tests/test_long_run.py::_corridor_run at full width: out and back along
+    the room's long axis, 0.5 m per sweep, the reversal ramped over 2 x 4
+    sweeps.  Returns (sweeps, the n + 1 poses)."""
+    from cooper_mapper_torch.io import sim
+
+    world = sim.make_room_world(size=(30.0, 4.0, 40.0), n_pillars=8, seed=11, device=device)
+    poses = [np.eye(4, dtype=np.float32)]
+    poses[0][1, 3], poses[0][2, 3] = 1.5, -14.0
+    for i in range(n_out + n_back):
+        if n_out - CORRIDOR_RAMP <= i < n_out + CORRIDOR_RAMP:
+            frac = (i - (n_out - CORRIDOR_RAMP)) / (2.0 * CORRIDOR_RAMP)
+            v = CORRIDOR_STEP_M * float(np.cos(np.pi * frac))
+        else:
+            v = CORRIDOR_STEP_M if i < n_out else -CORRIDOR_STEP_M
+        step = np.eye(4, dtype=np.float32)
+        step[2, 3] = v
+        poses.append(poses[-1] @ step)
+    sweeps = [sim.scan_sweep(world, torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]),
+                             RINGS, WIDTH) for i in range(n_out + n_back)]
+    return sweeps, np.stack(poses)
+
+
+def corridor_cfg(directory, dynamic=True):
+    """The default PipelineConfig but for tests/test_long_run.py::_cfg's map
+    and matcher, mapping_stride and score_threshold."""
+    from cooper_mapper_torch.config import (MapConfig, MatcherConfig, PipelineConfig,
+                                            ScanMatchConfig)
+
+    return PipelineConfig(
+        scan_match=ScanMatchConfig(score_threshold=50.0),
+        feature_map=MapConfig(n_cubes=(5, 3, 5), cube_size=8.0, corner_cube_capacity=768,
+                              surf_cube_capacity=1536, surround_corner_capacity=6144,
+                              surround_surf_capacity=12288, valid_distance=24.0,
+                              margin_cubes=1),
+        matcher=MatcherConfig(max_frame_corner=2048, max_frame_surf=4096, dynamic_mode=dynamic,
+                              map_directory=directory, dedup_stride=1),
+        mapping_stride=2)
+
+
+def ms_brief(ms):
+    return (f"{min(ms):.1f} / {float(np.median(ms)):.1f} / {float(np.mean(ms)):.1f} (best / "
+            f"median / mean of {len(ms)})")
+
+
+def stage_ms(timer, name):
+    """(ms per call, steady ms per call: the first call left out) of a stage."""
+    n, tot = timer.calls[name], timer.total_s[name]
+    steady = (tot - timer.first_s[name]) / (n - 1) if n > 1 else tot
+    return tot / max(n, 1) * 1e3, steady * 1e3
+
+
+def corridor_phase(tally, device):
+    """SlamPipeline with matcher.dynamic_mode over the corridor at full width:
+    tests/test_long_run.py's gates, then bit-transparency against the static
+    map and the two pagers."""
+    import tempfile
+
+    from cooper_mapper_torch.io import evaluation, native_pager
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+
+    t0 = time.perf_counter()
+    log(f"[30] out-of-core map: SlamPipeline(mode='mapping') with matcher.dynamic_mode over "
+        f"tests/test_long_run.py's corridor at {RINGS} x {WIDTH} ({CORRIDOR_OUT} sweeps out and "
+        f"{CORRIDOR_BACK} back, {CORRIDOR_STEP_M} m per sweep), its _cfg map (5 x 3 x 5 cubes of "
+        f"8 m, margin 1) and matcher, mapping_stride 2, score_threshold 50")
+    sweeps, gt = corridor_sweeps(device)
+    with tempfile.TemporaryDirectory() as d:
+        pipe = SlamPipeline(corridor_cfg(d), "mapping", device=device)
+        # the forward leg, then the return: the flushes of the forward leg are
+        # read between the two
+        results, ms, launches, _ = drive_pipeline(pipe, sweeps[:CORRIDOR_OUT], "corridor")
+        tally_drive(tally, launches)
+        flushed_out = pipe.dmap.n_flushed
+        back, ms_back, launches, _ = drive_pipeline(pipe, sweeps[CORRIDOR_OUT:], "corridor",
+                                                    start=CORRIDOR_OUT)
+        tally_drive(tally, launches)
+        results, ms = results + back, ms + ms_back
+        pipe.save_map()
+        files = sorted(os.listdir(d))
+    dmap, fmc = pipe.dmap, pipe.cfg.feature_map
+    est = np.stack([r.merged_pose for r in results])
+    ate = evaluation.pipeline_ate(est, gt).rmse
+    ran = [r.mapping_success for r in results if r.mapping_success is not None]
+    late = float(np.mean(ran[len(ran) // 2:]))
+    corner_max, surf_max = (int(cc.count.max()) for cc in (pipe.map_state.corner,
+                                                            pipe.map_state.surf))
+    n_pcd = sum(f.endswith(".pcd") for f in files)
+    paging = stage_ms(pipe.timer, "paging")
+    native = isinstance(dmap.pager, native_pager.CubePager)
+    log(f"    stats {pipe.stats()}")
+    log(f"    flushed {dmap.n_flushed} (>= 4; {flushed_out} on the way out), loaded {dmap.n_loaded} (>= 2), {len(dmap.on_disk)} "
+        f"cubes on disk; save_map wrote index2.txt {'index2.txt' in files} and {n_pcd} .pcd "
+        f"(>= 4); native pager {native}; fullest cubes corner {corner_max} / "
+        f"{fmc.corner_cube_capacity}, surf {surf_max} / {fmc.surf_cube_capacity}; ATE rmse "
+        f"{ate:.4f} m (< {CORRIDOR_ATE}); late-run success {late:.3f} (> {CORRIDOR_SUCCESS})")
+    log(f"    paging stage {paging[0]:.2f} ms per call, {paging[1]:.2f} steady "
+        f"({pipe.timer.calls['paging']} calls); ms per sweep {ms_brief(ms)}")
+    log("    StageTimer report:\n" + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
+    if not native:
+        fail("the dynamic map did not take the native pager")
+    if dmap.n_flushed < 4 or dmap.n_loaded < 2 or "index2.txt" not in files or n_pcd < 4:
+        fail("the corridor did not page cubes out and back in")
+    if corner_max >= fmc.corner_cube_capacity or surf_max >= fmc.surf_cube_capacity:
+        fail("a cube of the corridor's map reached its capacity")
+    if not (np.isfinite(est).all() and ate < CORRIDOR_ATE and late > CORRIDOR_SUCCESS):
+        fail("the corridor drive left tests/test_long_run.py's bounds")
+    out = dict(ms=ms, paging=paging, ate=ate, late=late, flushed=dmap.n_flushed,
+               loaded=dmap.n_loaded, files=n_pcd)
+    del pipe
+
+    # bit-transparency (TestDynamicEqualsStatic): over the forward leg, where
+    # cubes leave the window and none comes back, a static map gives the
+    # dynamic run's poses.  The whole leg, not the JAX test's 30 sweeps: the
+    # first occupied cubes leave the window only after ~50 sweeps.
+    with tempfile.TemporaryDirectory() as d:
+        p = SlamPipeline(corridor_cfg(d, dynamic=False), "mapping", device=device)
+        res, ms_static, launches, _ = drive_pipeline(p, sweeps[:CORRIDOR_OUT], "corridor, static")
+        tally_drive(tally, launches)
+    static = np.stack([r.merged_pose for r in res])
+    dx = float(np.abs(est[:CORRIDOR_OUT] - static).max())
+    ms_dynamic = ms[:CORRIDOR_OUT - 3]
+    log(f"    forward {CORRIDOR_OUT} sweeps, static vs dynamic map: max |dpose| {dx:.3g} (<= "
+        f"{TRANSPARENT_TOL}; the dynamic map flushed {flushed_out} cubes on that leg); ms per "
+        f"sweep static {ms_brief(ms_static)}, dynamic {ms_brief(ms_dynamic)}")
+    if not (dx <= TRANSPARENT_TOL and flushed_out > 0):
+        fail("paging moved the poses of the forward leg, or flushed nothing there")
+    out.update(transparent_dx=dx, static_ms=ms_static, dynamic_ms=ms_dynamic,
+               flushed_out=flushed_out)
+    out["pagers_equal"] = pagers_phase(device)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 30: {out['seconds']:.1f} s")
+    return out
+
+
+def pagers_phase(device):
+    """tests/test_io.py::TestDynamicMap::test_native_matches_python_paging
+    on the card: the native and the numpy pager, out, further and back."""
+    import tempfile
+
+    from cooper_mapper_torch.config import MapConfig
+    from cooper_mapper_torch.maps import dynamic_map
+    from cooper_mapper_torch.utils import cloud
+
+    cfg = MapConfig(n_cubes=(5, 3, 5), cube_size=10.0, corner_cube_capacity=256,
+                    surf_cube_capacity=512, surround_corner_capacity=2048,
+                    surround_surf_capacity=4096, valid_distance=25.0)
+    pts = np.random.RandomState(3).uniform(-12, 12, (40, 3)).astype(np.float32)
+    got = []
+    with tempfile.TemporaryDirectory() as d:
+        for native in (False, True):
+            dmap = dynamic_map.DynamicFeatureMap.create(cfg, os.path.join(d, str(native)),
+                                                        use_native_pager=native, device=device)
+            c = cloud.from_points(pts, device=device)
+            dmap.add_feature_cloud(c, c)
+            for pos in ([60.0, 0, 0], [120.0, 0, 0], [0.0, 0, 0]):
+                dmap.page(torch.tensor(pos, device=device))
+            dmap.save()
+            corner, _ = dmap.get_surround(torch.zeros(3, device=device))
+            xyz = corner.xyz[corner.mask].cpu().numpy()
+            got.append(xyz[np.lexsort(xyz.T)])
+    want = pts[np.lexsort(pts.T)]
+    same = got[0].shape == got[1].shape == want.shape and np.array_equal(got[0], got[1])
+    err = float(np.abs(got[0] - want).max()) if got[0].shape == want.shape else float("inf")
+    log(f"    native vs numpy pager, out and back: surround points equal {same}, "
+        f"{len(got[0])} of {len(pts)} points back, max |dx| {err:.3g} (<= 1e-5)")
+    if not (same and err <= 1e-5):
+        fail("the native and numpy pagers disagree")
+    return same
+
+
+def map_cloud(quick, device):
+    """The map a mapping run produced: every valid point of the Quick start's
+    49 sweeps placed by its merged pose (numpy [N, 3])."""
+    parts = []
+    for sw, T in zip(quick["sweeps"], quick["merged"]):
+        T = torch.from_numpy(T).to(device)
+        p = sw.xyz[sw.mask].to(device)
+        parts.append(p @ T[:3, :3].T + T[:3, 3])
+    return torch.cat(parts).cpu().numpy()
+
+
+def convert_phase(quick, tally, device):
+    """io/feature_extracter.convert_map_for_localization on the card (the
+    k-NN kernel at k = 10 over the whole cloud), its kernel against
+    knn_plain, its labels against the CPU's; then load_feature_map and
+    SlamPipeline(mode='localization') on the converted map."""
+    import tempfile
+
+    from cooper_mapper_torch.config import MapConfig, PipelineConfig
+    from cooper_mapper_torch.io import evaluation, map_io, pcd
+    from cooper_mapper_torch.io import feature_extracter as fe
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.ops import knn
+
+    t0 = time.perf_counter()
+    xyz = map_cloud(quick, device)
+    n = len(xyz)
+    cfg = MapConfig()
+    log(f"[31] offline map converter: phase 16's 49 sweeps placed by its merged poses ({n} "
+        f"points), write_pcd, convert_map_for_localization at the default MapConfig on {device}")
+    with tempfile.TemporaryDirectory() as d:
+        src, out = os.path.join(d, "map.pcd"), os.path.join(d, "converted")
+        pcd.write_pcd(src, xyz)
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_cubes = fe.convert_map_for_localization(src, out, cfg, device=device)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t1
+        launches, merges = read_launches(), read_merges()
+        add_counts(tally, launches, merges)
+        with open(os.path.join(out, "index.txt")) as f:
+            rows = [line.split() for line in f if line.strip()]
+        map_state = map_io.load_feature_map(out, cfg, device)
+    want = dict.fromkeys(launches, 0)
+    want["knn"] = 1
+    log(f"    convert {convert_s:.2f} s (read, classify, insert, save); launches {launches}, "
+        f"merges {merges['knn']}")
+    if launches != want:
+        fail(f"the converter launched {launches}, expected one k-NN launch")
+
+    # the converter's search: the kernel at its shape against knn_plain on a subset
+    pts = torch.from_numpy(xyz).to(device)
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    idx, dist = knn.knn(pts[None], pts, mask, CONVERT_K)
+    rng = np.random.RandomState(0)
+    sub = torch.from_numpy(np.sort(rng.choice(n, CONVERT_CHECKED, replace=False))).to(device)
+    p_idx, p_dist = knn.knn_plain(pts[sub][None], pts, mask, CONVERT_K)
+    torch.cuda.synchronize()
+    same = torch.equal(idx[:, sub], p_idx) and torch.equal(dist[:, sub], p_dist)
+    err = float((dist[:, sub] - p_dist).abs().max())
+    plan = races_plan(1, n, n, CONVERT_K)
+    log(f"    k-NN kernel at the converter's shape [1 x {n} vs {n}, k = {CONVERT_K}, plan "
+        f"{plan}] against knn_plain on {CONVERT_CHECKED} queries: indices and distances "
+        f"bit-identical {same}")
+    if not same:
+        fail("the converter's k-NN kernel disagrees with knn_plain")
+
+    # labels: the card's against the CPU's, both from the card's neighbours
+    nb = idx[0].long()
+    ev_card = fe.eigenvalues(pts, nb)
+    ev_cpu = fe.eigenvalues(pts.cpu(), nb.cpu())
+    (s_card, c_card), (s_cpu, c_cpu) = fe.labels(ev_card), fe.labels(ev_cpu)
+    differ = ((s_card.cpu() != s_cpu) | (c_card.cpu() != c_cpu)).numpy()
+    margin = torch.minimum(fe.threshold_margin(ev_card).cpu(), fe.threshold_margin(ev_cpu)).numpy()
+    n_surf, n_corner = int(s_card.sum()), int(c_card.sum())
+    stored = {t: sum(int(r[0]) for r in rows if r[1] == str(t)) for t in (0, 1)}
+    log(f"    labels card vs CPU (eigvalsh of the same neighbourhoods): {int(differ.sum())} of {n} "
+        f"differ (<= {LABEL_SHARE:.1%}), all within {LABEL_MARGIN} of a threshold "
+        f"{bool(np.all(margin[differ] < LABEL_MARGIN))} ({int((margin < LABEL_MARGIN).sum())} "
+        f"points are)")
+    log(f"    surf {n_surf}, corner {n_corner}; {n_cubes} cube files; stored surf {stored[1]}, "
+        f"corner {stored[0]}: the cubes dropped {n_surf - stored[1]} surf and "
+        f"{n_corner - stored[0]} corner points (capacities {cfg.surf_cube_capacity} / "
+        f"{cfg.corner_cube_capacity} per {cfg.cube_size:.0f} m cube)")
+    if differ.sum() > LABEL_SHARE * n or not np.all(margin[differ] < LABEL_MARGIN):
+        fail("the converter's labels on the card disagree with the CPU's")
+
+    # times at the converter's shape (the plain version and the library on a subset)
+    q_all = pts[None]
+    ms = time_ms(lambda: knn.knn(q_all, pts, mask, CONVERT_K), reps=3, warmup=1)
+    dev_ms, per_call, _, by_kernel = device_ms(
+        lambda: knn.knn(q_all, pts, mask, CONVERT_K), ("knn_kernel", "merge_first_k"), reps=3)
+    q_t = pts[sub[:CONVERT_TIMED]][None]
+    plain_ms = time_ms(lambda: knn.knn_plain(q_t, pts, mask, CONVERT_K), reps=2, warmup=1)
+    library_ms = time_ms(lambda: torch.cdist(q_t, pts[None]).square_()
+                         .topk(CONVERT_K, largest=False), reps=2, warmup=1)
+    pairs = n * n
+    t_ops = pairs * OPS_PER_PAIR["knn"] / FP32_PEAK_OPS * 1e3
+    t_bytes = (n * 12 + n + n * 12 + n * CONVERT_K * 8) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"1x{n} vs {n}, k = {CONVERT_K}", valid_ref=n, pairs=pairs, err=err, ms=ms,
+               device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+               timed_subset=f"plain and library on {CONVERT_TIMED} queries",
+               bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               plan=list(plan), where="phase 31, the offline converter")
+    log(f"    knn converter [1x{n} vs {n}, k = {CONVERT_K}, {pairs:.3g} valid pairs]: kernel "
+        f"{ms:.3f} ms, device {dev_ms:.3f} ms ({per_call:g} launches per call, {by_kernel}); "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); on {CONVERT_TIMED} queries: plain "
+        f"{plain_ms:.3f} ms, library (cdist, topk(10)) {library_ms:.3f} ms")
+
+    # localize on the converted map over the same sweeps, seeded at the first merged pose
+    pipe = SlamPipeline(PipelineConfig(), "localization", map_state=map_state,
+                        initial_pose=quick["merged"][0], device=device)
+    results, loc_ms, launches, _ = drive_pipeline(pipe, quick["sweeps"], "converted map")
+    tally_drive(tally, launches)
+    est = np.stack([r.merged_pose for r in results])
+    ate = evaluation.pipeline_ate(est, quick["poses"]).rmse
+    err_map = np.linalg.norm(est[:, :3, 3] - quick["merged"][:, :3, 3], axis=-1)
+    st = pipe.stats()
+    log(f"    localization on the converted map: stats {st}; steady error (mean from the third "
+        f"sweep) {float(err_map[2:].mean()):.4f} m against the mapping run's poses, whose map "
+        f"it is; pipeline_ate {ate:.4f} m against the simulator (printed, not gated); ms per "
+        f"sweep {ms_brief(loc_ms)}")
+    if not np.isfinite(est).all():
+        fail("localization on the converted map gave a non-finite pose")
+    seconds = time.perf_counter() - t0
+    log(f"    phase 31: {seconds:.1f} s")
+    return dict(row=row, n=n, n_surf=n_surf, n_corner=n_corner, cubes=n_cubes,
+                dropped=(n_surf - stored[1], n_corner - stored[0]), differ=int(differ.sum()),
+                steady=float(err_map[2:].mean()), ate=ate,
+                convert_s=convert_s, seconds=seconds, stats=st)
+
+
+def races_plan(B, Q, M, k):
+    """The k-NN's (S, L) split plan at a shape."""
+    from cooper_mapper_torch.ops import races
+
+    return races._split_plan(B, Q, M, races.sm_count("cuda"), knn_block_queries(k))
+
+
+def bag_phase(sweeps, truth, tally, device):
+    """The run_offline.py --bag flow: phase 9's sweeps as PointCloud2 (the
+    raw axis order) with IMU and odometry messages in a bz2 bag,
+    bag_to_npz, organize_unordered and the native binner, and the replay
+    through SlamPipeline."""
+    import tempfile
+
+    from cooper_mapper_torch import build
+    from cooper_mapper_torch.config import vlp16
+    from cooper_mapper_torch.io import native_binner, rosbag
+    from cooper_mapper_torch.models import scan_registration as sr
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.utils import se3
+
+    t0 = time.perf_counter()
+    log(f"[32] bag replay: phase 9's {len(sweeps)} sweeps as sensor_msgs/PointCloud2, "
+        f"{IMU_SAMPLES} sensor_msgs/Imu and one nav_msgs/Odometry per sweep, a bz2 bag, "
+        f"bag_to_npz, organize_unordered (VLP16) and bin_sweep_native, SlamPipeline on {device}")
+    msgs = []
+    for i, sw in enumerate(sweeps):
+        stamp = 10.0 + 0.1 * i
+        xyz = sw.xyz[sw.mask].cpu().numpy()[:, [2, 0, 1]]     # the sensor's raw axis order
+        msgs.append(("/multi_scan_points", "sensor_msgs/PointCloud2", stamp,
+                     rosbag.encode_pointcloud2(xyz, stamp)))
+        for k in range(IMU_SAMPLES):
+            t = stamp + 0.1 * k / IMU_SAMPLES
+            msgs.append(("/imu/data", "sensor_msgs/Imu", t,
+                         rosbag.encode_imu(t, [0, 0, 0, 1], [0.0, 0.0, 0.0], [0.0, 9.81, 0.0])))
+        T = truth[i + 1]
+        q = se3.rot_to_quat(torch.from_numpy(T[:3, :3])).numpy()          # (w, x, y, z)
+        msgs.append(("/fpd", "nav_msgs/Odometry", stamp,
+                     rosbag.encode_odometry(stamp, T[:3, 3].tolist(), [*q[1:], q[0]])))
+    cfg = vlp16()
+    with tempfile.TemporaryDirectory() as d:
+        bag, npz = os.path.join(d, "drive.bag"), os.path.join(d, "npz")
+        t1 = time.perf_counter()
+        rosbag.write_bag(bag, msgs, compression="bz2")
+        info = rosbag.bag_to_npz(bag, npz)
+        bag_s = time.perf_counter() - t1
+        raw = [np.load(os.path.join(npz, f"sweep_{i:06d}.npz"))["xyz"] for i in range(len(sweeps))]
+        bag_mb = os.path.getsize(bag) / 2**20
+    log(f"    bag {bag_mb:.2f} MiB, written and converted in {bag_s:.2f} s: {info}")
+    if (info["n_sweeps"], info["n_imu"], info["n_gt"]) != (len(sweeps), IMU_SAMPLES * len(sweeps),
+                                                           len(sweeps)):
+        fail("bag_to_npz did not give back the bag's messages")
+
+    organized, cells, org_ms, bin_ms, bad_ring, bad_rel = [], [0, 0], [], [], 0, 0
+    for pts in raw:
+        t1 = time.perf_counter()
+        s = sr.organize_unordered(pts, cfg.registration, sr.VLP16, device=device)
+        torch.cuda.synchronize()
+        org_ms.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        b_xyz, b_mask, b_rel = native_binner.bin_sweep_native(pts, RINGS, WIDTH)
+        bin_ms.append((time.perf_counter() - t1) * 1e3)
+        organized.append(s)
+        cells[0] += int(s.mask.sum())
+        cells[1] += int(b_mask.sum())
+        # tests/test_io.py::TestNativeBinner's gates
+        got = b_xyz[b_mask]
+        va = np.rad2deg(np.arctan2(got[:, 1], np.hypot(got[:, 0], got[:, 2])))
+        rings = np.repeat(np.arange(RINGS), b_mask.sum(1))
+        bad_ring += int((np.abs(va - (-15 + 2 * rings)) >= 1.01).sum())
+        bad_rel += sum(int((np.diff(b_rel[r][b_mask[r]]) < 0).sum()) for r in range(RINGS))
+    with open(os.path.join(build.BUILD_DIR, "libsweep_binner.log")) as f:
+        openmp = "-fopenmp" in f.read().strip().splitlines()[-1]
+    log(f"    the binner built from native/sweep_binner.cpp with OpenMP {openmp}")
+    log(f"    valid cells over {len(raw)} sweeps: organize_unordered {cells[0]} "
+        f"({np.median(org_ms):.2f} ms per sweep, median, to the card), bin_sweep_native "
+        f"{cells[1]} ({np.median(bin_ms):.2f} ms per sweep, median); the binner's points off "
+        f"their ring's angle by >= 1.01 deg {bad_ring}, rel_time steps backwards {bad_rel}")
+    if bad_ring or bad_rel or cells[1] == 0:
+        fail("the native binner broke tests/test_io.py::TestNativeBinner's gates")
+
+    pipe = SlamPipeline(cfg, "mapping", device=device)
+    results, ms, launches, _ = drive_pipeline(pipe, organized, "bag replay")
+    tally_drive(tally, launches)
+    gt = np.linalg.inv(truth[1]) @ truth[-1]
+    est = np.stack([r.merged_pose for r in results])
+    err = float(np.linalg.norm(est[-1, :3, 3] - gt[:3, 3]))
+    log(f"    replay: stats {pipe.stats()}; final position error {err:.4f} m (< {BAG_TOL}); "
+        f"ms per sweep {ms_brief(ms)}")
+    if not (np.isfinite(est).all() and err < BAG_TOL):
+        fail("the bag replay left test_bag_feeds_pipeline's bound")
+    seconds = time.perf_counter() - t0
+    log(f"    phase 32: {seconds:.1f} s")
+    return dict(err=err, cells=cells, org_ms=float(np.median(org_ms)),
+                bin_ms=float(np.median(bin_ms)), bag_s=bag_s, seconds=seconds)
+
+
+TRACED_KERNELS = ("nn1_kernel", "masked_kernel", "bc_races_kernel", "knn_kernel")
+
+
+def trace_phase(tally, device, n=5):
+    """One dynamic-mode mapping sweep inside utils/profiling.trace: the trace
+    file names the race kernels and the k-NN kernel."""
+    import tempfile
+
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    log(f"[33] utils/profiling.trace around sweep {n - 1} (a map solve) of a dynamic-mode drive "
+        f"over the corridor's first {n} sweeps")
+    sweeps, _ = corridor_sweeps(device, n_out=n, n_back=0)
+    with tempfile.TemporaryDirectory() as d:
+        pipe = SlamPipeline(corridor_cfg(os.path.join(d, "map")), "mapping", device=device)
+        reset_launches()
+        for sw in sweeps[:-1]:
+            pipe.process(sw)
+        with profiling.trace(os.path.join(d, "trace")):
+            r = pipe.process(sweeps[-1])
+        torch.cuda.synchronize()
+        add_counts(tally, read_launches(), read_merges())
+        files = os.listdir(os.path.join(d, "trace"))
+        with open(os.path.join(d, "trace", files[0])) as f:
+            text = f.read()
+        size = len(text)
+    named = {k: text.count(k) for k in TRACED_KERNELS}
+    log(f"    {files}: {size} bytes; events naming each kernel {named}; the sweep solved the map "
+        f"{r.mapping_success is not None}")
+    if len(files) != 1 or not all(named.values()) or r.mapping_success is None:
+        fail("the trace does not name the race and k-NN kernels of a map-solving sweep")
+    seconds = time.perf_counter() - t0
+    log(f"    phase 33: {seconds:.1f} s")
+    return dict(named=named, seconds=seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -2656,6 +3166,14 @@ def main():
     sm_parity = scan_match_parity_phase(corner, surf, map_c, map_s, x0_sm, parity, device)
     passes2 = dewarp_passes_phase(quick, device)
     debug_differ = features_debug_phase(device)
+    # the out-of-core map, the converter and the host I/O; every launch of
+    # their main paths is tallied under "host_io"
+    host_io = {}
+    corridor = corridor_phase(host_io, device)
+    convert = convert_phase(quick, host_io, device)
+    del quick["sweeps"]
+    bag = bag_phase(sweeps, truth, host_io, device)
+    traced = trace_phase(host_io, device)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -2667,7 +3185,7 @@ def main():
     extra = ("valid_ref", "device_ms", "plan", "split_route_device_ms", "merges", "where")
     # the loop closure's shapes (phase 21): nn1 in ICP, the k-NN in the fine match
     more_shapes["nn1"].append(icp_run["nn1"])
-    more_shapes["knn"] = [icp_run["knn"]]
+    more_shapes["knn"] = [icp_run["knn"], convert["row"]]
     fields = lambda v: {"max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
                         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
                         "library_ms": v["library_ms"], "shape": v["shape"],
@@ -2690,6 +3208,8 @@ def main():
                             merges=gdrive["merges"].get(row["name"], 0))
         # the parity phases' solves (24-27)
         row["parity"] = parity[row["name"]]
+        # the out-of-core map, the converter, the bag replay and the trace (30-33)
+        row["host_io"] = host_io[row["name"]]
         if row["name"] in single_stream:
             # launches: the single-stream drive's on the split route
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
@@ -2701,7 +3221,7 @@ def main():
     sm_scenes = "; ".join(f"eig {t:.0f}: degenerate {v['degenerate']}, signs {v['signs']}, "
                           f"|dx| direct {v['direct']:.3g} / card-signed {v['signed']:.3g}"
                           for t, v in sm_parity["scenes"].items())
-    log(f"[30] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    log(f"[34] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
         + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
@@ -2728,7 +3248,22 @@ def main():
         f"card vs CPU {sm_parity['dx']:.3g}, map scene {sm_scenes}; dewarp_passes=2 Quick start "
         f"ATE {passes2['ate']:.4f} / odometry {passes2['ate_odo']:.4f} m (1 pass "
         f"{quick['ate']:.4f} / {quick['ate_odo']:.4f}), reduced card vs CPU {passes2['dx']:.3g}; "
-        f"extract_features_debug card vs CPU differing points {debug_differ}; on {name} ({smi})")
+        f"extract_features_debug card vs CPU differing points {debug_differ}; corridor "
+        f"(dynamic map) ATE {corridor['ate']:.4f} m, late success {corridor['late']:.3f}, "
+        f"flushed {corridor['flushed']} / loaded {corridor['loaded']}, paging "
+        f"{corridor['paging'][1]:.2f} ms per call steady, ms per sweep "
+        f"{min(corridor['ms']):.1f} / {float(np.median(corridor['ms'])):.1f}, forward "
+        f"{CORRIDOR_OUT} sweeps static vs dynamic {corridor['transparent_dx']:.3g} (ms per "
+        f"sweep median {float(np.median(corridor['static_ms'])):.1f} / "
+        f"{float(np.median(corridor['dynamic_ms'])):.1f}); converter {convert['n']} points, "
+        f"surf {convert['n_surf']} / corner {convert['n_corner']}, {convert['cubes']} cubes, "
+        f"dropped {convert['dropped']}, labels differing {convert['differ']}, k-NN "
+        f"{convert['row']['ms']:.2f} ms, localization on it {convert['steady']:.4f} m steady "
+        f"from the mapping poses, ATE {convert['ate']:.4f} m (phase 15: {pipe_loc['steady']:.4f} "
+        f"steady); bag replay final error {bag['err']:.4f} m, "
+        f"valid cells organize_unordered / binner {bag['cells']}; phases 30-33 "
+        f"{corridor['seconds'] + convert['seconds'] + bag['seconds'] + traced['seconds']:.1f} s; "
+        f"on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,10 +1,22 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its native host libraries.
 
 One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into
 ``_build/libcooper_kernels.so``, a shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds, not minutes), which
-``ctypes`` loads.  The build runs at first use, under a file lock, and again
-whenever the hash of the sources and the ``csrc/*.cuh`` headers they include
+``ctypes`` loads.
+
+The host libraries (the sweep binner and the cube pager of ``native/``) are
+compiled the same way, one ``g++`` call each, into ``_build/lib<name>.so``,
+with ``native/Makefile``'s flags but for ``-march=native``: the prebuilt
+``native/*.so`` use the instructions of the machine that built them
+(AVX-512 in the binner), which another host's CPU may lack.  The binner's
+OpenMP loops are built with ``-fopenmp`` where the compiler has OpenMP's
+runtime, and serially (its ``#ifdef _OPENMP`` path) where it has not; the
+pager uses threads of its own, not OpenMP.  The build's log ends with the
+command that built the library.
+
+Every build runs at first use, under one file lock, and again whenever the
+hash of its flags and sources (the ``csrc/*.cuh`` headers included)
 changes.  ``_build/`` is git-ignored.
 """
 
@@ -15,17 +27,25 @@ import fcntl
 import glob
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
+NATIVE = os.path.join(os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libcooper_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# native/Makefile's CXXFLAGS without -march=native, and each library's own flags
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+HOST_LIBS = {"sweep_binner": ["-fopenmp"], "cube_pager": ["-lpthread"]}
+# flags dropped, in a second attempt, where the compiler rejects them
+HOST_OPTIONAL = ("-fopenmp",)
 
 _lib = None
+_host_libs: dict = {}
 build_seconds: float | None = None   # wall time of this process's build, if it built
 
 
@@ -37,8 +57,8 @@ def _headers():
     return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
-def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources, flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in sources:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode())
@@ -64,37 +84,88 @@ def find_nvcc() -> str:
         "to build cooper_mapper_torch's kernels")
 
 
-def build() -> str:
-    """Compile the kernels if the library is missing or stale; return its path."""
-    global build_seconds
-    sources = _sources()
-    digest = _digest(sources + _headers())
+def find_cxx() -> str | None:
+    """The host C++ compiler: $CXX, else g++ on the PATH (the compiler that
+    nvcc drives too); None when there is none."""
+    return shutil.which(os.environ.get("CXX") or "g++")
+
+
+def _build_locked(lib_name: str, digest: str, cmds_for, log_name: str):
+    """Unless ``_build/lib_name`` is stamped with ``digest``, run the compile
+    commands ``cmd_for(out_path)`` of ``cmds_for`` under the build lock, in
+    order, until one succeeds.  Returns (the library's path, the compile's
+    seconds or None when nothing was built)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-    stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
+    lib_path = os.path.join(BUILD_DIR, lib_name)
+    stamp = lib_path + ".sha256"
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if os.path.isfile(lib_path) and os.path.isfile(stamp):
                 with open(stamp) as f:
                     if f.read().strip() == digest:
-                        return lib_path
+                        return lib_path, None
             tmp = lib_path + f".tmp{os.getpid()}"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+            log = []
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-                f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            for cmd_for in cmds_for:
+                cmd = cmd_for(tmp)
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+                if res.returncode == 0:
+                    break
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(BUILD_DIR, log_name), "w") as f:
+                f.write("\n".join(log))
+                if res.returncode == 0:
+                    f.write("built with: " + " ".join(cmd) + "\n")
             if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+                raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({res.returncode}):\n"
+                                   + "\n".join(log))
             os.replace(tmp, lib_path)
             with open(stamp, "w") as f:
                 f.write(digest)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    return lib_path
+    return lib_path, seconds
+
+
+def build() -> str:
+    """Compile the kernels if the library is missing or stale; return its path."""
+    global build_seconds
+    sources = _sources()
+    path, seconds = _build_locked(
+        LIB_NAME, _digest(sources + _headers()),
+        [lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", out, *sources]], "build.log")
+    if seconds is not None:
+        build_seconds = seconds
+    return path
+
+
+def host_buildable(name: str) -> bool:
+    """Whether ``native/<name>.cpp`` and a host compiler exist, so that
+    ``host_library(name)`` can build it."""
+    return os.path.isfile(os.path.join(NATIVE, f"{name}.cpp")) and find_cxx() is not None
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The native host library ``name`` ("sweep_binner" or "cube_pager"),
+    compiled from ``native/<name>.cpp`` into ``_build/lib<name>.so`` first
+    if it is missing or stale.  Raises if the source or the compiler is
+    missing, or the build fails."""
+    if name not in _host_libs:
+        if not host_buildable(name):
+            raise RuntimeError(f"cannot build lib{name}.so: native/{name}.cpp or a host C++ "
+                               "compiler (g++, or $CXX) is missing")
+        src = os.path.join(NATIVE, f"{name}.cpp")
+        full = HOST_LIBS[name]
+        bare = [f for f in full if f not in HOST_OPTIONAL]
+        cmds = [lambda out, flags=flags: [find_cxx(), *HOST_FLAGS, "-o", out, src, *flags]
+                for flags in ([full, bare] if bare != full else [full])]
+        path, _ = _build_locked(f"lib{name}.so", _digest([src], HOST_FLAGS + full), cmds,
+                                f"lib{name}.log")
+        _host_libs[name] = ctypes.CDLL(path)
+    return _host_libs[name]
 
 
 def library() -> ctypes.CDLL:

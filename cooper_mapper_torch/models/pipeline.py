@@ -16,9 +16,15 @@ the mapping output: accepted solves feed the keyframe gate, each new
 keyframe looks for a loop, and a closed loop runs the LM optimization; every
 result then carries the graph-corrected pose.
 
+With ``cfg.matcher.dynamic_mode`` in "mapping" mode the cube map is
+out of core (``maps/dynamic_map``): before each map solve a "paging" stage
+flushes the cubes that leave the device window to
+``cfg.matcher.map_directory`` and loads those that enter it, and the solve
+then runs without recentring; ``save_map()`` writes the whole map there.
+In the other modes ``dynamic_mode`` changes nothing, as in the JAX package.
+
 Not ported, and so raising ``NotImplementedError``: the device-sharded
-cube map (``map_mesh``) and the out-of-core map (``matcher.dynamic_mode``);
-see ROADMAP.md, Queue 1.
+cube map (``map_mesh``); see ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..fusion import imu_queue, ukf_estimator
+from ..maps import dynamic_map
 from ..maps import feature_map as fm
 from ..maps import local_map as lm
 from ..ops import features as feat_ops
@@ -75,17 +82,23 @@ class SlamPipeline:
         if map_mesh is not None:
             raise NotImplementedError(
                 "map_mesh (the device-sharded cube map) is not ported: ROADMAP.md Queue 1 item 8")
-        if cfg.matcher.dynamic_mode:
-            raise NotImplementedError(
-                "matcher.dynamic_mode (the out-of-core map) is not ported: "
-                "ROADMAP.md Queue 1 item 7")
         self.cfg = cfg
         self.mode = mode
         self.device = torch.device(device)
         r = cfg.registration
         self.odo = laser_odometry.create(r.max_less_sharp, r.max_less_flat, device)
         self.matcher = laser_mapping.create_matcher(device)
-        if mode in ("mapping", "localization"):
+        # the out-of-core map (the pipeline's dynamicMode switch,
+        # LaserMatcher.cpp:107-118): the window is a FeatureMapState, the
+        # DynamicFeatureMap adds the host paging ledger; every map step
+        # updates the state in place, so map_state stays dmap.state
+        self.dynamic = mode == "mapping" and cfg.matcher.dynamic_mode
+        self.dmap = None
+        if self.dynamic:
+            self.dmap = dynamic_map.DynamicFeatureMap.create(
+                cfg.feature_map, cfg.matcher.map_directory, device=device)
+            self.map_state = self.dmap.state
+        elif mode in ("mapping", "localization"):
             self.map_state = (map_state if map_state is not None
                               else fm.create(cfg.feature_map, device))
         else:
@@ -163,8 +176,17 @@ class SlamPipeline:
                 args = (odo_out.corner_for_map, odo_out.surf_for_map, L_now, cfg.scan_match,
                         cfg.matcher)
                 if self.mode == "mapping":
+                    if self.dynamic:
+                        # page BEFORE the solve, at the solve's own guess:
+                        # flush the leaving cubes, recentre, load the
+                        # entering ones (update(), DynamicFeatureMap.h:504-677)
+                        with self.timer.stage("paging", sync=dev):
+                            T_guess = laser_mapping.merged_pose(self.matcher, L_now)
+                            self.dmap.page(T_guess[:3, 3])
+                            self.map_state = self.dmap.state
                     self.matcher, self.map_state, mo = laser_mapping.mapping_step(
-                        self.matcher, self.map_state, *args, cfg.feature_map)
+                        self.matcher, self.map_state, *args, cfg.feature_map,
+                        recenter=not self.dynamic)
                 elif self.mode == "local":
                     self.matcher, self.map_state, mo = laser_mapping.mapping_local_step(
                         self.matcher, self.map_state, *args)
@@ -252,8 +274,10 @@ class SlamPipeline:
         return np.stack([T @ p for p in self.trajectory]).astype(np.float32)
 
     def save_map(self) -> None:
-        """Flush the out-of-core map to disk: dynamic mode only, which is not
-        ported, so nothing to do."""
+        """Flush the out-of-core map to disk and wait for the files (dynamic
+        mode only; otherwise nothing to do)."""
+        if self.dynamic:
+            self.dmap.save()
 
     def stats(self) -> dict:
         """Frame and solve accounting: the reference's destructor printouts

@@ -3,18 +3,21 @@
 * ``StageTimer``: named wall-clock accumulators with call counts, the
   reference's destructor counters as an explicit report.
 * ``time_stage``: a standalone stage timer.
+* ``trace``: a ``torch.profiler`` trace of a block (host ops and, on the
+  card, every kernel), written as a Chrome trace: the counterpart of the
+  JAX package's ``xla_trace``.
 
 A stage given ``sync`` (a device) waits for that device's queued work
 before it stops the clock, so a stage's device time is counted in it and
 not in the next stage that reads a result; the JAX package blocks on the
 stage's output for the same reason.  On the CPU there is nothing to wait
-for.  The JAX package's ``xla_trace`` has no counterpart here: on the card
-``torch.profiler`` traces the kernels.
+for.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -83,3 +86,24 @@ def time_stage(name: str, timer: Optional[StageTimer] = None) -> Iterator[None]:
     t0 = time.perf_counter()
     yield
     print(f"[{name}] {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Trace the block with ``torch.profiler`` (CPU activities, and CUDA
+    ones where a card is present) and write it to
+    ``log_dir/trace_<pid>_<n>.json`` (Chrome trace format; open it in
+    chrome://tracing or Perfetto).  The counterpart of the JAX package's
+    ``xla_trace``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))

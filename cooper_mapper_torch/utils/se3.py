@@ -153,6 +153,22 @@ def rot_to_quat(R):
     return quat_normalize(q)
 
 
+def quat_slerp(q0, q1, u):
+    """Spherical interpolation from ``q0`` to ``q1``, ``u`` in [0, 1]; the
+    shorter arc, and a plain lerp where the two are nearly parallel
+    (sin theta < 1e-5)."""
+    u = torch.as_tensor(u, dtype=q0.dtype, device=q0.device)
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-5
+    safe = torch.where(use_lerp, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - u, torch.sin((1.0 - u) * theta) / safe)
+    w1 = torch.where(use_lerp, u, torch.sin(u * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
 def skew(v):
     x, y, z = v.unbind(-1)
     zero = torch.zeros_like(x)

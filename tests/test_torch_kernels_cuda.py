@@ -870,3 +870,72 @@ def test_gn_steps_on_card_make_no_host_sync(cuda, reference_mode):
     on_card = [t.to(cuda) for t in (P, deg, A, b)]          # the copies wait for the host
     got = _without_host_sync(lambda: steps(*on_card))
     torch.testing.assert_close(got.cpu(), steps(P, deg, A, b), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_knn_at_k10_at_the_converters_shape(cuda):
+    """The offline converter's search (io/feature_extracter.neighbours): a
+    map cloud against itself at k = 10, B = 1 and Q = M, under the plan
+    ``_split_plan`` picks, against knn_plain on a query subset."""
+    from cooper_mapper_torch.io import feature_extracter
+
+    rng = np.random.RandomState(16)
+    pts = torch.from_numpy(rng.uniform(-30, 30, (60000, 3)).astype(np.float32)).to(cuda)
+    pts[:, 1] = torch.round(pts[:, 1])                  # planes, so near ties occur
+    before = knn.knn.launches
+    idx = feature_extracter.neighbours(pts, 10)
+    assert knn.knn.launches == before + 1
+    sub = torch.from_numpy(rng.choice(60000, 2048, replace=False)).to(cuda)
+    mask = torch.ones(60000, dtype=torch.bool, device=cuda)
+    got = knn.knn(pts[sub][None], pts, mask, 10)
+    want = knn.knn_plain(pts[sub][None], pts, mask, 10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(idx[sub], want[0][0].long())
+    # more neighbourhoods than one eigvalsh call takes: labels as the CPU's
+    # from the same neighbours, but on a threshold's ulp
+    big = torch.cat([pts, pts[:feature_extracter.EIG_BATCH] + 0.05])
+    nb = feature_extracter.neighbours(big, 10)
+    ev_card = feature_extracter.eigenvalues(big, nb)
+    ev_cpu = feature_extracter.eigenvalues(big.cpu(), nb.cpu())
+    differ = torch.zeros(len(big), dtype=torch.bool)
+    for a, b in zip(feature_extracter.labels(ev_card), feature_extracter.labels(ev_cpu)):
+        differ |= a.cpu() != b
+    margin = torch.minimum(feature_extracter.threshold_margin(ev_card).cpu(),
+                           feature_extracter.threshold_margin(ev_cpu))
+    assert len(big) > feature_extracter.EIG_BATCH and bool(torch.isfinite(ev_card).all())
+    assert int(differ.sum()) <= 1e-3 * len(big) and bool((margin[differ] < 1e-4).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_native", [False, True])
+def test_dynamic_map_flush_and_reload_on_card_equal_cpu(cuda, tmp_path, use_native):
+    """The out-of-core map on the card pages the same cubes as on the CPU:
+    the same ledger, counts, files and surround after an out-and-back
+    wander (the window shift and the slots come from the same code on both)."""
+    from cooper_mapper_torch.config import MapConfig
+    from cooper_mapper_torch.maps import dynamic_map
+    from cooper_mapper_torch.utils import cloud
+
+    cfg = MapConfig(n_cubes=(5, 3, 5), cube_size=10.0, corner_cube_capacity=256,
+                    surf_cube_capacity=512, surround_corner_capacity=2048,
+                    surround_surf_capacity=4096, valid_distance=25.0)
+    pts = np.random.RandomState(3).uniform(-12, 12, (400, 3)).astype(np.float32)
+    pts[:40] = np.round(pts[:40] / 10.0 - 0.5) * 10.0 + 5.0    # on cube boundaries
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        d = dynamic_map.DynamicFeatureMap.create(cfg, str(tmp_path / dev),
+                                                 use_native_pager=use_native, device=dev)
+        c = cloud.from_points(pts, device=dev)
+        d.add_feature_cloud(c, c)
+        for pos in ([60.0, 0, 0], [120.0, 0, 5.0], [0.0, 0, 0], [35.0, 0, -35.0], [0.0, 0, 0]):
+            d.page(torch.tensor(pos, device=dev))
+        d.save()
+        maps[dev] = d
+    a, b = maps["cpu"], maps["cuda"]
+    assert a.on_disk == b.on_disk and (a.n_flushed, a.n_loaded) == (b.n_flushed, b.n_loaded)
+    assert b.n_loaded > 0
+    for ca, cb in ((a.state.corner, b.state.corner), (a.state.surf, b.state.surf)):
+        assert torch.equal(ca.count, cb.count.cpu())
+        assert torch.equal(ca.xyz, cb.xyz.cpu()) and torch.equal(ca.mask, cb.mask.cpu())
+    assert sorted(p.name for p in (tmp_path / "cpu").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "cuda").iterdir())

@@ -21,6 +21,7 @@ bit for bit (it is numpy in both packages).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from cooper_mapper_tpu.io import sim as jsim  # noqa: E402
 from cooper_mapper_tpu.maps import feature_map as jfm  # noqa: E402
 from cooper_mapper_tpu.maps import local_map as jlmap  # noqa: E402
 from cooper_mapper_tpu.models import laser_mapping as jlm  # noqa: E402
+from cooper_mapper_tpu.models import pipeline as jpipe  # noqa: E402
 from cooper_mapper_tpu.ops import features as jfeat  # noqa: E402
 from cooper_mapper_tpu.ops import voxel as jvox  # noqa: E402
 from cooper_mapper_tpu.utils import cloud as jcloud  # noqa: E402
@@ -315,19 +317,77 @@ def test_figure_eight_trajectory_equals_jax():
                                       jsim.figure_eight_trajectory(n))
 
 
-# ---- SlamPipeline options that are not ported --------------------------------
+# ---- SlamPipeline options: the one not ported raises; dynamic_mode ------------
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"map_mesh": object()}, "item 8"),
-    ({"cfg": tc.PipelineConfig(matcher=tc.MatcherConfig(dynamic_mode=True))}, "item 7"),
-    # the pose-graph backend is ported (item 6); with it on, the options that
-    # are not still raise
-    ({"cfg": tc.PipelineConfig(enable_graph=True,
-                               matcher=tc.MatcherConfig(dynamic_mode=True))}, "item 7"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SlamPipeline(device="cpu", **kwargs)
+
+
+def _small_sweeps(n=3, width=256):
+    world = tsim.make_room_world(size=(20.0, 4.0, 24.0), n_pillars=4, seed=13, device="cpu")
+    p = np.eye(4, dtype=np.float32)
+    p[1, 3] = 1.5
+    step = np.eye(4, dtype=np.float32)
+    step[2, 3] = 0.35
+    out = []
+    for _ in range(n):
+        out.append(tsim.scan_sweep(world, torch.from_numpy(p), torch.from_numpy(p @ step),
+                                   n_rings=16, width=width))
+        p = p @ step
+    return out
+
+
+def _small_pipeline_cfg(m, tmp_path, dynamic, **changes):
+    return dataclasses.replace(m.PipelineConfig(
+        registration=m.RegistrationConfig(n_rings=16, max_points_per_ring=256),
+        scan_match=m.ScanMatchConfig(score_threshold=50.0),
+        feature_map=m.MapConfig(n_cubes=(5, 3, 5), cube_size=10.0, corner_cube_capacity=512,
+                                surf_cube_capacity=1024, surround_corner_capacity=4096,
+                                surround_surf_capacity=8192, valid_distance=25.0),
+        matcher=m.MatcherConfig(max_frame_corner=2048, max_frame_surf=4096,
+                                dynamic_mode=dynamic, map_directory=str(tmp_path / "map"))),
+        **changes)
+
+
+@pytest.mark.parametrize("mode", ["local", "localization"])
+def test_dynamic_mode_outside_mapping_runs_as_static(tmp_path, mode):
+    """dynamic_mode only concerns the mapping mode: in "local" and
+    "localization" no paging map is made (as in the JAX package) and the
+    drive equals the same drive without the flag, bit for bit."""
+    j = jpipe.SlamPipeline(_small_pipeline_cfg(jc, tmp_path, True), mode)
+    assert not j.dynamic and j.dmap is None
+    sweeps = _small_sweeps()
+    poses = {}
+    for dynamic in (True, False):
+        pipe = SlamPipeline(_small_pipeline_cfg(tc, tmp_path, dynamic), mode, device="cpu")
+        assert not pipe.dynamic and pipe.dmap is None
+        poses[dynamic] = np.stack([pipe.process(s).merged_pose for s in sweeps])
+        pipe.save_map()
+    np.testing.assert_array_equal(poses[True], poses[False])
+    assert not os.path.exists(tmp_path / "map")
+
+
+def test_dynamic_mode_with_the_graph_runs(tmp_path):
+    """dynamic_mode with enable_graph: the graph rides the paged map (the
+    JAX package allows the pair); a few sweeps run, keyframes are taken and
+    save_map() writes the manifest and the cube files."""
+    cfg = _small_pipeline_cfg(tc, tmp_path, True, enable_graph=True,
+                              pose_graph=tc.PoseGraphConfig(max_nodes=64, max_edges=128))
+    pipe = SlamPipeline(cfg, "mapping", device="cpu")
+    assert pipe.dynamic and pipe.graph is not None
+    results = [pipe.process(s) for s in _small_sweeps(4)]
+    assert all(np.isfinite(r.merged_pose).all() for r in results)
+    assert all(r.graph_pose is not None for r in results[1:])
+    assert pipe.timer.calls["paging"] == pipe.stats()["mapping_solves"] >= 2
+    assert len(pipe.graph.keyframes) >= 1
+    pipe.save_map()
+    files = os.listdir(tmp_path / "map")
+    assert "index2.txt" in files and sum(f.endswith(".pcd") for f in files) >= 2
+    assert pipe.dmap.n_flushed == len(files) - 1
 
 
 def test_unknown_mode_raises():
