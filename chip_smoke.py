@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Seven paths run, each through the entry points a user calls.
+Eight paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -54,6 +54,14 @@ converter (``io/feature_extracter``, the k-NN kernel at k = 10 over a whole
 map cloud) and localization on its output, and the ``run_offline.py --bag``
 flow (``io/rosbag``, ``organize_unordered`` and the native binner, then the
 pipeline), with one sweep traced by ``utils/profiling.trace``.
+
+The parallel layer on ``torch.distributed``: the sharded odometry and
+scan-to-map solves (``parallel/batch``), the edge-sharded pose-graph LM,
+``SlamPipeline(map_mesh=...)`` on the striped cube map
+(``maps/sharded_map``), first on a mesh of one rank under NCCL, then on two
+ranks in spawned processes (NCCL on two cards, or gloo with both ranks on
+the one card); and the capacity-bucketed odometry solve of a heterogeneous
+batch.
 
 Phases, each announced on its own line as it starts:
 
@@ -261,7 +269,42 @@ Phases, each announced on its own line as it starts:
 33. one map-solving sweep of a dynamic-mode drive (the corridor's first 5)
    inside ``utils/profiling.trace``: the Chrome trace names the race kernels
    and the k-NN kernel;
-34. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+34. a mesh of one rank (``parallel/distributed.initialize`` with NCCL,
+   ``make_mesh()``; torch's and CUDA's versions printed), each against the
+   unsharded run of the same inputs earlier in the script, bit for bit:
+   ``sharded_odometry_solve`` at B = 512 on phase 4's problem (phase 4's
+   launches; solves/s timed in turns with the unsharded solve, beside phase
+   4's), ``sharded_scan_match`` at B = 64 on phase 7's (22 k-NN launches),
+   ``sharded_pose_graph_optimize`` dense and CG on phase 18's graph (LM
+   iterations/s beside phase 18's), and ``SlamPipeline(map_mesh=mesh)`` over
+   phase 13's drive (phase 13's launches per sweep; the poses and
+   ``single_map_state()`` against phase 13's);
+35. ``bucketed_odometry_solve`` at B = 512 on the bench pair, problem b
+   keeping tests/test_parallel.py's fraction 1.0 / 1.0 / 0.6 / 0.6 / 0.25 /
+   0.25 [b % 6] of each cloud's points, at bench_hetero.py's granule 512
+   and chunk 256, at TestBucketedOdometry's 8 GN iterations and at the
+   default 25: every lane within 2e-4 of the full-capacity batch solve of
+   its dispatch's problems, ``n_matched`` equal, the race launches of one
+   solve per dispatch; the difference to one full-capacity solve of all
+   512 by keep fraction is printed (cuBLAS's batched products sum in an
+   order set by the batch size, and the problems keeping a quarter of
+   their points are ill-conditioned enough to move by it); the plan and the
+   solves/s of the bucketed and the homogeneous solve, timed in turns;
+36. two ranks, spawned (NCCL where there are two cards, else gloo over CUDA
+   tensors with both on the one card; which one ran is printed), each
+   checking: the sharded odometry (256 rows each) within 1e-4 of phase 34's;
+   the sharded LM dense and CG within tests/test_parallel.py's tolerances
+   of phase 34's (initial cost 1e-4 relative, on the nodes those tests
+   compare, 0..11: poses 5e-3, CG positions 1e-2; over every node printed);
+   the striped map at the default ``MapConfig`` on phase 9's first 6
+   sweeps' features (inserts and recentres, the surround, dedup and a 500 m
+   recentre) bit for bit against the single-device map through
+   ``to_single``, the surround as the same point set; and
+   ``SlamPipeline(map_mesh)`` over phase 13's drive within 2.5e-2 m of its
+   trajectory (tests/test_sharded_map.py::TestShardedPipeline's bound), with
+   the stripe's bytes and each rank's peak memory; a failing rank fails
+   the run and ends the other;
+37. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
@@ -272,8 +315,9 @@ Phases, each announced on its own line as it starts:
    route's drive's, at S = 66 of 1024 queries with S = 32 under
    ``more_shapes``; every row's ``pipeline`` holds its launches and merges in
    phase 13's drive, its ``graph`` those inside the graph stage of phase
-   20's drive, its ``parity`` those of phases 24-27's solves, and its
-   ``host_io`` those of phases 30-33; nn1's ICP shape and the k-NN's
+   20's drive, its ``parity`` those of phases 24-27's solves, its
+   ``host_io`` those of phases 30-33, and its ``parallel`` those of phases
+   34-36 (both ranks of 36 added up); nn1's ICP shape and the k-NN's
    fine-match shape of phase 21 and its converter shape of phase 31 are
    under their ``more_shapes``), then the result line.
 
@@ -710,7 +754,7 @@ def solve_phase(sharp, flat, ref_c, ref_s, x0, motion):
         f"rotation error max {float(re_.max()):.5f} rad (< {ROT_TOL})")
     if not (torch.isfinite(xg).all() and (te < TRANS_TOL).all() and (re_ < ROT_TOL).all()):
         fail("lanes outside the ground-truth bounds")
-    return launches, merges, B / best, B / med
+    return launches, merges, B / best, B / med, (x, st)
 
 
 def scan_match_poses():
@@ -913,7 +957,7 @@ def scan_match_phase(corner, surf, ref_c, ref_s, x0):
     if not (torch.isfinite(loc.x).all() and dx <= CPU_TOL
             and bool(loc.success) == bool(loc_cpu.success)):
         fail("scan_match_local on the card disagrees with the CPU")
-    return launches, merges, B / best, B / med
+    return launches, merges, B / best, B / med, res
 
 
 def fused_bytes(B, Q, slots, valid, n_races):
@@ -1529,10 +1573,9 @@ def pipeline_phase(sweeps, truth, device):
     default PipelineConfig but for TestImuFusion's two settings: a map solve
     on every sweep (the UKF corrects only after an accepted solve) and no
     predict cool-down."""
-    from cooper_mapper_torch.config import PipelineConfig, UKFConfig
     from cooper_mapper_torch.models.pipeline import SlamPipeline
 
-    cfg = PipelineConfig(mapping_stride=1, ukf=UKFConfig(cool_time_duration=0.0))
+    cfg = pipe13_cfg()
     log(f"[13] SlamPipeline(mode='mapping') with IMU fusion: {len(sweeps)} sweeps of phase 9, "
         f"PipelineConfig(mapping_stride=1, ukf=UKFConfig(cool_time_duration=0.0)), "
         f"{IMU_SAMPLES} IMU samples per sweep, on {device}")
@@ -1828,7 +1871,8 @@ def pose_graph_phase(device):
     dpos = float((p_dense[:, :3, 3] - p_cg[:, :3, 3]).norm(dim=-1).max())
     log(f"    dense vs CG at n={PG_NODES}: max position difference {dpos:.4g} m")
     big, _ = pose_graph_lm(PG_BIG_NODES, "cg", device)
-    return dict(dense=dense, cg=cg, cg_big=big, dense_vs_cg_m=dpos)
+    return dict(dense=dense, cg=cg, cg_big=big, dense_vs_cg_m=dpos,
+                poses={"dense": p_dense, "cg": p_cg})
 
 
 def pose_graph_card_vs_cpu_phase(device):
@@ -3085,6 +3129,406 @@ def trace_phase(tally, device, n=5):
     return dict(named=named, seconds=seconds)
 
 
+# The parallel layer: parallel/batch, maps/sharded_map and SlamPipeline(map_mesh)
+# on torch.distributed, with tests/test_parallel.py's and tests/test_sharded_map.py's
+# tolerances
+PAR_ODO_TOL = 1e-4                       # TestShardedOdometry
+PAR_COST_RTOL, PAR_DENSE_TOL, PAR_CG_TOL = 1e-4, 5e-3, 1e-2   # TestShardedPoseGraph(Cg)
+PAR_PG_NEAR = 12                         # the nodes those tests compare: poses[:12]
+PAR_PIPE_TOL = 2.5e-2                    # tests/test_sharded_map.py::TestShardedPipeline
+KEEPS = (1.0, 1.0, 0.6, 0.6, 0.25, 0.25)  # TestBucketedOdometry's keep fractions
+BUCKET_GRANULE, BUCKET_CHUNK = 512, 256   # benchmarks/bench_hetero.py's defaults
+BUCKET_TOL, BUCKET_ITERS = 2e-4, 8        # TestBucketedOdometry's bound and iterations
+PAR_RANKS, PAR_MAP_SWEEPS, PAR_LM_REPS = 2, 6, 3
+# seconds: phase 36's ranks in all, and a collective's wait for the other rank
+PAR_TIMEOUT, PAR_GROUP_TIMEOUT = 600.0, 300.0
+
+
+def pipe13_cfg():
+    """Phase 13's PipelineConfig (TestImuFusion's stride and cool-down)."""
+    from cooper_mapper_torch.config import PipelineConfig, UKFConfig
+
+    return PipelineConfig(mapping_stride=1, ukf=UKFConfig(cool_time_duration=0.0))
+
+
+def race_launches(cfg, n=1):
+    """The split races' launches of ``n`` odometry batch solves at B = 512
+    (phase 4's expectation)."""
+    blocks = -(-cfg.max_iterations // cfg.refresh_every)
+    return {"nn1": 2 * blocks * n, "nn1_masked": blocks * n, "bc_races": blocks * n,
+            "fused_races": 0, "merge_min": 0, "knn": 0}
+
+
+def lm_timed(g, cfg, mesh, reps=PAR_LM_REPS):
+    """``sharded_pose_graph_optimize`` ``reps`` times: (graph, diag, LM
+    iterations/s best and median)."""
+    from cooper_mapper_torch.parallel import batch
+
+    its = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, diag = batch.sharded_pose_graph_optimize(g, cfg, mesh)
+        torch.cuda.synchronize()
+        its.append(cfg.max_iterations / (time.perf_counter() - t0))
+    return out, diag, (max(its), float(np.median(its)))
+
+
+def one_rank_phase(bench, scan, pg_run, pipe13, sweeps, tally, device):
+    """[34] a mesh of one rank under NCCL: every sharded path against the
+    unsharded run of the same inputs earlier in the script, bit for bit."""
+    import tempfile
+
+    from cooper_mapper_torch.config import OdometryConfig, ScanMatchConfig
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.ops import odometry
+    from cooper_mapper_torch.parallel import batch, distributed, mesh as mesh_lib
+
+    sharp, flat, ref_c, ref_s, x0, x4, st4, sps4 = bench
+    corner_b, surf_b, map_c, map_s, x0_sm, res7, sps7 = scan
+    t0 = time.perf_counter()
+    log(f"[34] the parallel layer on a mesh of one rank (torch.distributed; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}): every sharded path against the "
+        f"unsharded run earlier in this script, bit for bit")
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        distributed.initialize(f"file://{d}/store", 1, 0, device=device)
+        try:
+            mesh = mesh_lib.make_mesh()
+            log(f"    mesh: size {mesh.size}, rank {mesh.rank}, {mesh.device}, backend "
+                f"{torch.distributed.get_backend(mesh.group)}")
+            cfg = OdometryConfig()
+            (x, st), launches, _ = counted(tally, lambda: batch.sharded_odometry_solve(
+                sharp, flat, ref_c, ref_s, x0, cfg, mesh))
+            same = torch.equal(x, x4) and all(torch.equal(getattr(st, f.name), getattr(st4, f.name))
+                                              for f in dataclasses.fields(st))
+            sps = solves_per_s({"sharded": lambda: batch.sharded_odometry_solve(
+                                    sharp, flat, ref_c, ref_s, x0, cfg, mesh),
+                                "unsharded": lambda: odometry.batch_odometry_solve(
+                                    sharp, flat, ref_c, ref_s, x0, cfg)}, x0.shape[0])
+            log(f"    sharded_odometry_solve B={x0.shape[0]}: launches {launches}; x and states "
+                f"bit-identical to phase 4's {same}; solves/s best / median: sharded "
+                f"{sps['sharded'][0]:.1f} / {sps['sharded'][1]:.1f}, unsharded in turns "
+                f"{sps['unsharded'][0]:.1f} / {sps['unsharded'][1]:.1f} (phase 4: {sps4[0]:.1f} / "
+                f"{sps4[1]:.1f})")
+            if launches != race_launches(cfg) or not same:
+                fail("the one-rank sharded odometry solve differs from phase 4's")
+            out["odometry"] = dict(x=x, sps=sps)
+
+            sm_cfg = ScanMatchConfig()
+            res, launches, merges = counted(tally, lambda: batch.sharded_scan_match(
+                corner_b, surf_b, map_c, map_s, x0_sm, sm_cfg, mesh))
+            same = all(torch.equal(getattr(res, f.name), getattr(res7, f.name))
+                       for f in dataclasses.fields(res))
+            sm_sps = solves_per_s({"sharded": lambda: batch.sharded_scan_match(
+                corner_b, surf_b, map_c, map_s, x0_sm, sm_cfg, mesh)}, x0_sm.shape[0])
+            log(f"    sharded_scan_match B={x0_sm.shape[0]}: launches {launches}, merges {merges}; "
+                f"every result field bit-identical to phase 7's {same}; solves/s "
+                f"{sm_sps['sharded'][0]:.1f} / {sm_sps['sharded'][1]:.1f} (phase 7: "
+                f"{sps7[0]:.1f} / {sps7[1]:.1f})")
+            if launches["knn"] != 2 * (sm_cfg.max_iterations + 1) or not same:
+                fail("the one-rank sharded scan match differs from phase 7's")
+            out["scan_match"] = sm_sps["sharded"]
+
+            for solver in ("dense", "cg"):
+                g, pg_cfg = pose_graph_problem(PG_NODES, solver, device)
+                got, diag, its = lm_timed(g, pg_cfg, mesh)
+                same = torch.equal(got.poses, pg_run["poses"][solver])
+                ref = pg_run[solver]["iters_per_s"]
+                log(f"    sharded_pose_graph_optimize {solver} n={PG_NODES}: cost "
+                    f"{float(diag['initial_cost']):.6g} -> {float(diag['final_cost']):.6g}; "
+                    f"poses bit-identical to phase 18's {same}; LM iterations/s best / median "
+                    f"{its[0]:.2f} / {its[1]:.2f} (phase 18: {ref[0]:.2f} / {ref[1]:.2f})")
+                if not same:
+                    fail(f"the one-rank sharded LM ({solver}) differs from phase 18's")
+                out[f"lm_{solver}"] = dict(its=its, cost=(float(diag["initial_cost"]),
+                                                          float(diag["final_cost"])),
+                                           poses=got.poses)
+
+            pipe = SlamPipeline(pipe13_cfg(), "mapping", map_mesh=mesh)
+            _, ms, launches, _ = drive_pipeline(pipe, sweeps, "map_mesh of one", imu=True)
+            tally_drive(tally, launches)
+            traj = np.stack(pipe.trajectory)
+            same_t = bool(np.array_equal(traj, pipe13["trajectory"]))
+            same_m = maps_equal(pipe.single_map_state(), pipe13["map"])
+            log(f"    SlamPipeline(map_mesh=mesh) over phase 13's drive (IMU windows): poses "
+                f"bit-identical to phase 13's {same_t}, single_map_state() bit-identical {same_m}; "
+                f"ms per sweep {ms_stat(ms)}")
+            if not (same_t and same_m):
+                fail("SlamPipeline on a mesh of one differs from phase 13's drive")
+            out["pipeline_ms"] = ms
+        finally:
+            distributed.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 34: {out['seconds']:.1f} s")
+    return out
+
+
+def shrink_lanes(cl, keeps, B):
+    """``cl`` (unbatched, front-packed) tiled to B problems, problem b keeping
+    its first max(keeps[b % len(keeps)] * n, 40) valid points
+    (TestBucketedOdometry._hetero_batch)."""
+    from cooper_mapper_torch.utils import cloud
+
+    n = int(cl.mask.sum())
+    keep = torch.tensor([max(int(keeps[b % len(keeps)] * n), 40) for b in range(B)],
+                        device=cl.xyz.device)
+    t = tile(cl, B)
+    rank = torch.cumsum(t.mask.to(torch.int32), dim=1) - 1
+    m = t.mask & (rank < keep[:, None])
+    return cloud.Cloud(torch.where(m[..., None], t.xyz, cloud.FAR), m, t.ring, t.rel_time)
+
+
+def full_capacity_by_dispatch(clouds, x0, cfg, plan):
+    """The full-capacity batch solve of each dispatch's problems (its rows,
+    repeat padding included, at the clouds' own capacities): (x, n_matched)
+    in input order.  It differs from the bucketed solve only by the bucket
+    truncation; cuBLAS's batched products pick their reduction by batch
+    size, so a solve of all B problems at once sums in another order."""
+    from cooper_mapper_torch.ops import odometry
+    from cooper_mapper_torch.utils.cloud import Cloud
+
+    x, n = torch.empty_like(x0), torch.empty(x0.shape[0], device=x0.device)
+    for _, _, sl, idx in plan[1]:
+        rows = torch.from_numpy(idx).to(x0.device)
+        pick = lambda c: Cloud(*(t.index_select(0, rows)
+                                 for t in (c.xyz, c.mask, c.ring, c.rel_time)))
+        xd, st = odometry.batch_odometry_solve(*(pick(c) for c in clouds), x0[rows], cfg)
+        x[sl], n[sl] = xd[:len(sl)], st.n_matched[:len(sl)]
+    return x, n
+
+
+def bucketed_phase(sharp1, flat1, ref_c, ref_s, x0, tally):
+    """[35] bucketed_odometry_solve at B = 512 on the bench pair with
+    TestBucketedOdometry's keep fractions, against the full-capacity batch
+    solve of the same problems: per dispatch (gated), and all B at once
+    (printed), at the test's 8 GN iterations and the default 25."""
+    from cooper_mapper_torch.config import OdometryConfig
+    from cooper_mapper_torch.ops import odometry
+    from cooper_mapper_torch.parallel import batch
+
+    B = x0.shape[0]
+    cfg = OdometryConfig()
+    t0 = time.perf_counter()
+    log(f"[35] bucketed_odometry_solve: B={B} problems of the bench pair (per-problem "
+        f"references), problem b keeping a fraction {KEEPS}[b % 6] of each cloud's points, "
+        f"granule {BUCKET_GRANULE}, chunk {BUCKET_CHUNK}; TestBucketedOdometry's "
+        f"max_iterations={BUCKET_ITERS}, then the default OdometryConfig")
+    clouds = [shrink_lanes(c, KEEPS, B) for c in (sharp1, flat1, ref_c, ref_s)]
+    plan = batch.bucket_plan(*clouds, BUCKET_GRANULE, BUCKET_CHUNK)
+    front_packed, dispatches = plan
+    log(f"    plan: front-packed {front_packed}; {len(dispatches)} dispatches "
+        + "; ".join(f"caps {caps} x {take_n} ({len(sl)} problems)"
+                    for caps, take_n, sl, _ in dispatches)
+        + f"; full capacities {tuple(c.capacity for c in clouds)}; valid points of problems "
+        f"0..5 (sharp, flat, less_sharp, less_flat) "
+        f"{[tuple(int(c.mask[b].sum()) for c in clouds) for b in range(len(KEEPS))]}")
+    out = {}
+    for iters in (BUCKET_ITERS, cfg.max_iterations):
+        c = dataclasses.replace(cfg, max_iterations=iters)
+        (xb, stb), launches, merges = counted(tally, lambda: batch.bucketed_odometry_solve(
+            *clouds, x0, c, plan=plan))
+        xd, nd = full_capacity_by_dispatch(clouds, x0, c, plan)
+        xf, stf = odometry.batch_odometry_solve(*clouds, x0, c)
+        dx = float((xb - xd).abs().max())
+        same_n = torch.equal(stb.n_matched, nd)
+        by_keep = [float((xb - xf)[k::len(KEEPS)].abs().max()) for k in range(len(KEEPS))]
+        want = race_launches(c, len(dispatches))
+        log(f"    max_iterations={iters}: launches {launches} (expected {want}), merges "
+            f"{merges}; max |dx| against the full-capacity solve of each dispatch's problems "
+            f"{dx:.3g} (< {BUCKET_TOL}), n_matched equal {same_n}; against one full-capacity "
+            f"solve of all {B}, by problem b % 6 {['%.3g' % v for v in by_keep]}, n_matched "
+            f"equal on {int((stb.n_matched == stf.n_matched).sum())} of {B} (printed)")
+        if launches != want or not (dx < BUCKET_TOL and same_n and torch.isfinite(xb).all()):
+            fail("the bucketed solve left TestBucketedOdometry's bounds")
+        out[iters] = dict(dx=dx, by_keep=by_keep)
+    sps = solves_per_s({"bucketed": lambda: batch.bucketed_odometry_solve(
+                            *clouds, x0, cfg, plan=plan, with_states=False),
+                        "homogeneous": lambda: odometry.batch_odometry_solve(*clouds, x0, cfg)},
+                       B)
+    log(f"    default OdometryConfig, solves/s best / median, in turns: bucketed "
+        f"{sps['bucketed'][0]:.1f} / {sps['bucketed'][1]:.1f}, homogeneous full capacity "
+        f"{sps['homogeneous'][0]:.1f} / {sps['homogeneous'][1]:.1f}")
+    seconds = time.perf_counter() - t0
+    log(f"    phase 35: {seconds:.1f} s")
+    return dict(plan=[(caps, take_n, len(sl)) for caps, take_n, sl, _ in dispatches],
+                dx=out[BUCKET_ITERS]["dx"], diffs=out, sps=sps, seconds=seconds)
+
+
+def striped_map_check(pcfg, sweeps, truth, mesh, device, say):
+    """The striped map against the single-device map at ``pcfg``'s map (the
+    default MapConfig) on phase 9's first PAR_MAP_SWEEPS sweeps' features,
+    placed at their end poses: inserts and recentres, the surround's point
+    set, dedup, and a recentre 500 m on that clears cubes; bit for bit after
+    each."""
+    from cooper_mapper_torch.maps import feature_map as fm
+    from cooper_mapper_torch.maps import sharded_map as smap
+    from cooper_mapper_torch.models.laser_mapping import _to_world
+    from cooper_mapper_torch.ops import features
+
+    cfg, reg = pcfg.feature_map, pcfg.registration
+    single, striped = fm.create(cfg, device), smap.create_sharded(cfg, mesh)
+    held = map_bytes(striped)
+    for i, sw in enumerate(sweeps[:PAR_MAP_SWEEPS]):
+        f = features.extract_features(sw, reg)
+        T = torch.from_numpy(truth[i + 1]).to(device)
+        c, s = _to_world(f.less_sharp, T), _to_world(f.less_flat, T)
+        fm.add_feature_cloud(single, c, s, cfg)
+        smap.add_feature_cloud(striped, c, s, cfg, mesh)
+        fm.recenter(single, T[:3, 3], cfg)
+        smap.recenter(striped, T[:3, 3], cfg, mesh)
+    checks = {"insert": maps_equal(smap.to_single(striped, cfg, mesh), single)}
+    pos = T[:3, 3]
+    pts = lambda cl: sorted(map(tuple, cl.xyz[cl.mask].cpu().numpy().tolist()))
+    got, want = smap.get_surround(striped, pos, cfg, mesh), fm.get_surround(single, pos, cfg)
+    checks["surround"] = all(pts(a) == pts(b) for a, b in zip(got, want))
+    n_sur = [(int(a.mask.sum()), int(b.mask.sum())) for a, b in zip(got, want)]
+    fm.dedup_active(single, pos, cfg)
+    smap.dedup_active(striped, pos, cfg, mesh)
+    checks["dedup"] = maps_equal(smap.to_single(striped, cfg, mesh), single)
+    far = pos + torch.tensor([0.0, 0.0, 500.0], device=device)
+    fm.recenter(single, far, cfg)
+    smap.recenter(striped, far, cfg, mesh)
+    checks["recenter"] = maps_equal(smap.to_single(striped, cfg, mesh), single)
+    say(f"striped map ({cfg.n_cubes} cubes, {held / 2**20:.1f} MiB in this rank's stripe, "
+        f"the single map {map_bytes(single) / 2**20:.1f} MiB): surround corner / surf points, "
+        f"striped and single, {n_sur}; after the inserts, surround, dedup and the 500 m recentre "
+        f"(origin {single.origin.tolist()}) equal to the single map: {checks}")
+    return checks, held
+
+
+def two_rank_child(rank, world, d, backend, device):
+    """One rank of phase 36 (a spawned process): the sharded paths on half
+    of phase 34's work each, against phase 34's results in ``d``/inputs.pt."""
+    from cooper_mapper_torch.config import OdometryConfig
+    from cooper_mapper_torch.models.pipeline import SlamPipeline
+    from cooper_mapper_torch.ops.features import Sweep
+    from cooper_mapper_torch.parallel import batch, distributed, mesh as mesh_lib
+    from cooper_mapper_torch.utils.cloud import Cloud
+
+    os.environ["COOPER_PALLAS_FUSED"] = "0"
+    say = lambda msg: log(f"    [36 rank {rank}] {msg}")
+    device = distributed.initialize(f"file://{d}/store", world, rank, device=device,
+                                    backend=backend, timeout=PAR_GROUP_TIMEOUT)
+    mesh = mesh_lib.make_mesh(device=device)
+    inp = torch.load(os.path.join(d, "inputs.pt"), map_location=device)
+    cl = lambda k: Cloud(*inp[k])
+    tally, out = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+
+    cfg = OdometryConfig()
+    (x, _), launches, _ = counted(tally, lambda: batch.sharded_odometry_solve(
+        cl("sharp"), cl("flat"), cl("ref_c"), cl("ref_s"), inp["x0"], cfg, mesh))
+    dx = float((x - inp["x"]).abs().max())
+    say(f"sharded_odometry_solve B={inp['x0'].shape[0]} ({inp['x0'].shape[0] // world} rows "
+        f"here): launches {launches}; max |dx| against phase 34 {dx:.3g} (< {PAR_ODO_TOL})")
+    if launches != race_launches(cfg) or not dx < PAR_ODO_TOL:
+        fail(f"rank {rank}: the sharded odometry solve left {PAR_ODO_TOL} of phase 34's")
+    out["odometry_dx"] = dx
+
+    for solver, tol in (("dense", PAR_DENSE_TOL), ("cg", PAR_CG_TOL)):
+        g, pg_cfg = pose_graph_problem(PG_NODES, solver, device)
+        # one run: at two ranks on one card a dense LM iteration moves its
+        # 151 MB Hessian through the host and gloo
+        got, diag, its = lm_timed(g, pg_cfg, mesh, reps=1)
+        c0, c1 = float(diag["initial_cost"]), float(diag["final_cost"])
+        ref0, ref1 = (float(v) for v in inp[f"lm_{solver}_cost"])
+        dpos = (got.poses - inp[f"lm_{solver}"]) if solver == "dense" else (
+            got.poses[:, :3, 3] - inp[f"lm_{solver}"][:, :3, 3])
+        dp = float(dpos[:PAR_PG_NEAR].abs().max())
+        say(f"sharded_pose_graph_optimize {solver} n={PG_NODES} ({g.edge_i.shape[0] // world} "
+            f"edges here): cost {c0:.6g} -> {c1:.6g} (phase 34: -> {ref1:.6g}), initial cost "
+            f"vs phase 34 relative {abs(c0 - ref0) / ref0:.3g} (< {PAR_COST_RTOL}); max "
+            f"|d{'pose' if solver == 'dense' else 'position'}| over nodes 0..{PAR_PG_NEAR - 1} "
+            f"{dp:.3g} (< {tol}), over all {float(dpos.abs().max()):.3g} (printed: the ring's "
+            f"far nodes are weakly determined, phase 18's dense and CG part by up to "
+            f"{inp['lm_dense_vs_cg']:.3g} m); LM iterations/s {its[0]:.2f}")
+        if not (abs(c0 - ref0) <= PAR_COST_RTOL * ref0 and dp < tol and c1 < PG_COST_RATIO * c0):
+            fail(f"rank {rank}: the sharded LM ({solver}) left TestShardedPoseGraph's bounds")
+        out[f"lm_{solver}"] = dict(its=its, dp=dp)
+
+    sweeps = [Sweep(*s) for s in inp["sweeps"]]
+    truth = inp["truth"].cpu().numpy()
+    checks, held = striped_map_check(pipe13_cfg(), sweeps, truth, mesh, device, say)
+    if not all(checks.values()):
+        fail(f"rank {rank}: the striped map differs from the single map: {checks}")
+    out["map_checks"], out["stripe_bytes"] = checks, held
+
+    pipe = SlamPipeline(pipe13_cfg(), "mapping", map_mesh=mesh)
+    _, ms, launches, _ = drive_pipeline(pipe, sweeps, f"rank {rank} map_mesh", imu=True)
+    tally_drive(tally, launches)
+    traj = np.stack(pipe.trajectory)
+    err = np.linalg.norm(traj[:, :3, 3] - inp["trajectory"].cpu().numpy()[:, :3, 3], axis=-1)
+    single = pipe.single_map_state()
+    say(f"SlamPipeline(map_mesh) over phase 13's drive: max position difference to the "
+        f"single-device trajectory {float(err.max()):.4g} m (< {PAR_PIPE_TOL}), final "
+        f"{float(err[-1]):.4g} m; gathered map points {int(single.corner.count.sum())} corner / "
+        f"{int(single.surf.count.sum())} surf; stats {pipe.stats()}; ms per sweep {ms_stat(ms)}")
+    if not float(err.max()) < PAR_PIPE_TOL:
+        fail(f"rank {rank}: SlamPipeline(map_mesh) left {PAR_PIPE_TOL} m of the single device")
+    out["pipe_err"], out["pipe_ms"] = float(err.max()), ms
+    out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    say(f"peak memory {out['peak_mib']:.1f} MiB")
+    out["tally"] = tally
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def two_rank_phase(bench, one, pipe13, sweeps, truth, tally, device):
+    """[36] two ranks: NCCL on two cards where there are two, else two
+    processes on the one card under gloo (NCCL refuses two ranks on one
+    card).  Every rank checks its results; a failing rank fails the run."""
+    import multiprocessing as mp
+    import tempfile
+
+    sharp, flat, ref_c, ref_s, x0 = bench
+    backend = "nccl" if torch.cuda.device_count() >= PAR_RANKS else "gloo"
+    t0 = time.perf_counter()
+    log(f"[36] the parallel layer on {PAR_RANKS} ranks: {backend}"
+        + (" over CUDA tensors, both ranks on the one card" if backend == "gloo" else
+           f" on {PAR_RANKS} cards") + " (spawned processes); each rank's checks below")
+    cpu = lambda c: [t.cpu() for t in (c.xyz, c.mask, c.ring, c.rel_time)]
+    inp = {"sharp": cpu(sharp), "flat": cpu(flat), "ref_c": cpu(ref_c), "ref_s": cpu(ref_s),
+           "x0": x0.cpu(), "x": one["odometry"]["x"].cpu(),
+           "sweeps": [[t.cpu() for t in (s.xyz, s.mask, s.rel_time)] for s in sweeps],
+           "truth": torch.from_numpy(np.stack(truth)),
+           "trajectory": torch.from_numpy(pipe13["trajectory"])}
+    for solver in ("dense", "cg"):
+        inp[f"lm_{solver}"] = one[f"lm_{solver}"]["poses"].cpu()
+        inp[f"lm_{solver}_cost"] = torch.tensor(one[f"lm_{solver}"]["cost"])
+    inp["lm_dense_vs_cg"] = float((inp["lm_dense"][:, :3, 3] - inp["lm_cg"][:, :3, 3])
+                                  .norm(dim=-1).max())
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(inp, os.path.join(d, "inputs.pt"))
+        procs = [ctx.Process(target=two_rank_child, args=(r, PAR_RANKS, d, backend, device))
+                 for r in range(PAR_RANKS)]
+        for p in procs:
+            p.start()
+        # wait for every rank; one that fails ends the others (they would
+        # wait at their next collective), and so does the time limit
+        deadline = time.monotonic() + PAR_TIMEOUT
+        while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+               and not any(p.exitcode for p in procs)):
+            time.sleep(0.5)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"phase 36: rank exit codes {codes} (ranks {hung} were still running, killed)")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PAR_RANKS)]
+    for r in ranks:
+        for k, v in r.pop("tally").items():
+            add_counts(tally, {k: v["launches"]}, {k: v["merges"]})
+    seconds = time.perf_counter() - t0
+    log(f"    phase 36: {seconds:.1f} s")
+    return dict(backend=backend, ranks=ranks, seconds=seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -3103,7 +3547,8 @@ def main():
     x0 = torch.from_numpy((0.02 * np.random.RandomState(0).randn(BATCH, 6))
                           .astype(np.float32)).to(device)
     kern = kernel_phase(sharp, flat, ref_c, ref_s, x0)
-    launches, merges, sps_best, sps_med = solve_phase(sharp, flat, ref_c, ref_s, x0, motion)
+    launches, merges, sps_best, sps_med, solved4 = solve_phase(sharp, flat, ref_c, ref_s, x0,
+                                                               motion)
 
     log("[6] scan-to-map problem (bench_scan_match.build_problem, ported) on the card")
     corner, surf, map_c, map_s = make_scan_match_problem(device)
@@ -3114,8 +3559,8 @@ def main():
     x0_sm = torch.from_numpy((0.02 * np.random.RandomState(0).randn(SM_BATCH, 6))
                              .astype(np.float32)).to(device)
     knn_rows = knn_kernel_phase(corner, surf, map_c, map_s, x0_sm)
-    sm_launches, sm_merges, sm_best, sm_med = scan_match_phase(corner, surf, map_c, map_s,
-                                                               x0_sm)
+    sm_launches, sm_merges, sm_best, sm_med, res7 = scan_match_phase(corner, surf, map_c, map_s,
+                                                                     x0_sm)
     launches["knn"], merges["knn"] = sm_launches["knn"], sm_merges["knn"]
     kern["knn"] = knn_rows["surf"]
 
@@ -3147,6 +3592,7 @@ def main():
     reduced_dx = reduced_card_vs_cpu_phase(device)
     pipe, pipe_run = pipeline_phase(sweeps, truth, device)
     pipe_loc = pipeline_localization_phase(pipe.single_map_state(), truth, device)
+    pipe13 = dict(trajectory=np.stack(pipe.trajectory), map=pipe.single_map_state())
     del pipe
     local_run = local_phase(sweeps, truth, device)
     quick = quick_start_phase(device)
@@ -3174,6 +3620,16 @@ def main():
     del quick["sweeps"]
     bag = bag_phase(sweeps, truth, host_io, device)
     traced = trace_phase(host_io, device)
+    # the parallel layer; every launch of its main paths, the two ranks' of
+    # phase 36 included, is tallied under "parallel"
+    par = {}
+    one = one_rank_phase((sharp, flat, ref_c, ref_s, x0, *solved4, (sps_best, sps_med)),
+                         (tile(corner, SM_BATCH), tile(surf, SM_BATCH), map_c, map_s, x0_sm,
+                          res7, (sm_best, sm_med)),
+                         pg_run, pipe13, sweeps, par, device)
+    bucketed = bucketed_phase(sharp1, flat1, ref_c, ref_s, x0, par)
+    two = two_rank_phase((sharp, flat, ref_c, ref_s, x0), one, pipe13, sweeps, truth, par,
+                         device)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -3210,6 +3666,8 @@ def main():
         row["parity"] = parity[row["name"]]
         # the out-of-core map, the converter, the bag replay and the trace (30-33)
         row["host_io"] = host_io[row["name"]]
+        # the parallel layer (34-36): the mesh of one, the buckets, both ranks of 36
+        row["parallel"] = par.get(row["name"], {"launches": 0, "merges": 0})
         if row["name"] in single_stream:
             # launches: the single-stream drive's on the split route
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
@@ -3221,7 +3679,7 @@ def main():
     sm_scenes = "; ".join(f"eig {t:.0f}: degenerate {v['degenerate']}, signs {v['signs']}, "
                           f"|dx| direct {v['direct']:.3g} / card-signed {v['signed']:.3g}"
                           for t, v in sm_parity["scenes"].items())
-    log(f"[34] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    log(f"[37] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
         + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
@@ -3263,6 +3721,19 @@ def main():
         f"steady); bag replay final error {bag['err']:.4f} m, "
         f"valid cells organize_unordered / binner {bag['cells']}; phases 30-33 "
         f"{corridor['seconds'] + convert['seconds'] + bag['seconds'] + traced['seconds']:.1f} s; "
+        f"parallel: one rank (NCCL) sharded odometry {one['odometry']['sps']['sharded'][0]:.1f} "
+        f"solves/s (unsharded {one['odometry']['sps']['unsharded'][0]:.1f}), scan-to-map "
+        f"{one['scan_match'][0]:.1f}, LM dense / CG {one['lm_dense']['its'][0]:.2f} / "
+        f"{one['lm_cg']['its'][0]:.2f} iterations/s, all bit-identical to the unsharded runs; "
+        f"bucketed {bucketed['sps']['bucketed'][0]:.1f} solves/s against homogeneous "
+        f"{bucketed['sps']['homogeneous'][0]:.1f} ({len(bucketed['plan'])} dispatches, max |dx| "
+        f"{bucketed['dx']:.3g}); {PAR_RANKS} ranks ({two['backend']}): "
+        + "; ".join(f"rank {r}: odometry |dx| {v['odometry_dx']:.3g}, LM dense / CG "
+                    f"{v['lm_dense']['its'][0]:.2f} / {v['lm_cg']['its'][0]:.2f} iterations/s, "
+                    f"pipeline max error {v['pipe_err']:.4g} m, stripe "
+                    f"{v['stripe_bytes'] / 2**20:.1f} MiB, peak {v['peak_mib']:.1f} MiB"
+                    for r, v in enumerate(two["ranks"]))
+        + f"; phases 34-36 {one['seconds'] + bucketed['seconds'] + two['seconds']:.1f} s; "
         f"on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

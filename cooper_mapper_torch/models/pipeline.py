@@ -23,8 +23,9 @@ flushes the cubes that leave the device window to
 then runs without recentring; ``save_map()`` writes the whole map there.
 In the other modes ``dynamic_mode`` changes nothing, as in the JAX package.
 
-Not ported, and so raising ``NotImplementedError``: the device-sharded
-cube map (``map_mesh``); see ROADMAP.md, Queue 1.
+With ``map_mesh`` (a ``parallel/mesh.Mesh``) the cube map is striped over
+the mesh's ranks (``maps/sharded_map``): every rank runs the same sweeps,
+holds its stripe of the map, and gathers the surround from all of them.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..fusion import imu_queue, ukf_estimator
 from ..maps import dynamic_map
 from ..maps import feature_map as fm
 from ..maps import local_map as lm
+from ..maps import sharded_map as smap
 from ..ops import features as feat_ops
 from ..ops.features import Sweep
 from ..utils import profiling
@@ -72,7 +74,12 @@ class SlamPipeline:
     """mode: "mapping" (cube-grid map), "local" (sliding window),
     "localization" (a fixed pre-built ``map_state``, never written).
     Everything is created on ``device``; the CPU runs the kernels' plain
-    versions."""
+    versions.
+
+    ``map_mesh``: stripe the cube map over the mesh's ranks, each rank
+    running this pipeline on the same sweeps; everything then lives on
+    ``map_mesh.device``.  Mapping mode only, and not with
+    ``matcher.dynamic_mode`` (disk paging is a single-array host path)."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(), mode: str = "mapping",
                  map_state: Optional[fm.FeatureMapState] = None,
@@ -80,10 +87,14 @@ class SlamPipeline:
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if map_mesh is not None:
-            raise NotImplementedError(
-                "map_mesh (the device-sharded cube map) is not ported: ROADMAP.md Queue 1 item 8")
+            if mode != "mapping":
+                raise ValueError("map_mesh requires mode='mapping'")
+            if cfg.matcher.dynamic_mode:
+                raise ValueError("map_mesh is incompatible with matcher.dynamic_mode")
+            device = map_mesh.device
         self.cfg = cfg
         self.mode = mode
+        self.map_mesh = map_mesh
         self.device = torch.device(device)
         r = cfg.registration
         self.odo = laser_odometry.create(r.max_less_sharp, r.max_less_flat, device)
@@ -98,6 +109,10 @@ class SlamPipeline:
             self.dmap = dynamic_map.DynamicFeatureMap.create(
                 cfg.feature_map, cfg.matcher.map_directory, device=device)
             self.map_state = self.dmap.state
+        elif map_mesh is not None:
+            self.map_state = (smap.from_single(map_state, cfg.feature_map, map_mesh)
+                              if map_state is not None
+                              else smap.create_sharded(cfg.feature_map, map_mesh))
         elif mode in ("mapping", "localization"):
             self.map_state = (map_state if map_state is not None
                               else fm.create(cfg.feature_map, device))
@@ -175,7 +190,10 @@ class SlamPipeline:
             with self.timer.stage(f"mapping[{self.mode}]", sync=dev):
                 args = (odo_out.corner_for_map, odo_out.surf_for_map, L_now, cfg.scan_match,
                         cfg.matcher)
-                if self.mode == "mapping":
+                if self.mode == "mapping" and self.map_mesh is not None:
+                    self.matcher, self.map_state, mo = smap.mapping_step(
+                        self.matcher, self.map_state, *args, cfg.feature_map, self.map_mesh)
+                elif self.mode == "mapping":
                     if self.dynamic:
                         # page BEFORE the solve, at the solve's own guess:
                         # flush the leaving cubes, recentre, load the
@@ -208,8 +226,12 @@ class SlamPipeline:
             ds = cfg.matcher.dedup_stride
             if self.mode == "mapping" and ds > 0 and self._mapping_count % ds == 0:
                 with self.timer.stage("dedup", sync=dev):
-                    self.map_state = fm.dedup_active(self.map_state, mo.W[:3, 3],
-                                                     cfg.feature_map)
+                    if self.map_mesh is not None:
+                        self.map_state = smap.dedup_active(self.map_state, mo.W[:3, 3],
+                                                           cfg.feature_map, self.map_mesh)
+                    else:
+                        self.map_state = fm.dedup_active(self.map_state, mo.W[:3, 3],
+                                                         cfg.feature_map)
 
         merged = _host(laser_mapping.merged_pose(self.matcher, L_now))
 
@@ -297,7 +319,11 @@ class SlamPipeline:
         return out
 
     def single_map_state(self) -> fm.FeatureMapState:
-        """The map as one FeatureMapState (the form a map file holds)."""
+        """The map as one FeatureMapState (the form a map file holds).  With
+        ``map_mesh`` the stripes are gathered (``sharded_map.to_single``), a
+        collective that every rank calls."""
+        if self.map_mesh is not None:
+            return smap.to_single(self.map_state, self.cfg.feature_map, self.map_mesh)
         return self.map_state
 
     # ---- fusion outputs ---------------------------------------------------

@@ -24,6 +24,11 @@ Three things differ in form from the JAX package, not in result:
   what ``gn_nan_guard`` makes of JAX's NaN.
 - The LM loop and the CG loop are Python loops of tensor ops with no host
   read: accept / reject, the lambda update and the CG freeze are selects.
+
+The edge-sharded LM of ``parallel/batch.py`` runs these same functions on
+each rank's block of edges, with ``reduce`` (identity here) summing the
+gradient, the Hessian, its node-diagonal blocks, each Hessian-vector product
+and the cost over the ranks where the JAX package's ``psum`` sums them.
 """
 
 from __future__ import annotations
@@ -188,17 +193,22 @@ def _edge_blocks(graph: PoseGraph, plans: GraphPlans):
                             graph.edge_info, graph.edge_mask, plans)
 
 
-def _assemble(graph: PoseGraph, damping, plans: GraphPlans):
+def _same(t):
+    return t
+
+
+def _assemble(graph: PoseGraph, damping, plans: GraphPlans, reduce=_same):
     """The damped normal equations H dx = -g over all active edges."""
     n = graph.poses.shape[0]
     H_ii, H_jj, H_ij, g2, _ = _edge_blocks(graph, plans)
-    H = dense_from_blocks(H_ii, H_jj, H_ij, plans, n)
+    H = reduce(dense_from_blocks(H_ii, H_jj, H_ij, plans, n))
+    g2 = reduce(g2)
     damp = gauge_damping(graph.node_mask, torch.diagonal(H).reshape(n, 6), damping)
     H.diagonal().add_(damp.reshape(6 * n))
     return H, g2.reshape(6 * n)
 
 
-def _hvp(H_ii, H_jj, H_ij, plans: GraphPlans, edge_i, edge_j, damp_diag, v):
+def _hvp(H_ii, H_jj, H_ij, plans: GraphPlans, edge_i, edge_j, damp_diag, v, reduce=_same):
     """Damped Hessian-vector product by edge scatter: v, out [N, 6]."""
     vi = v[edge_i.long()]
     vj = v[edge_j.long()]
@@ -206,23 +216,24 @@ def _hvp(H_ii, H_jj, H_ij, plans: GraphPlans, edge_i, edge_j, damp_diag, v):
         torch.einsum("epq,eq->ep", H_ii, vi) + torch.einsum("epq,eq->ep", H_ij, vj),
         torch.einsum("eqp,eq->ep", H_ij, vi) + torch.einsum("epq,eq->ep", H_jj, vj),
     ]))
-    return out + damp_diag * v
+    return reduce(out) + damp_diag * v
 
 
-def _damping_terms(graph: PoseGraph, H_ii, H_jj, lam, plans: GraphPlans):
+def _damping_terms(graph: PoseGraph, H_ii, H_jj, lam, plans: GraphPlans, reduce=_same):
     """Gauge boost + LM damping as a diagonal [N, 6], and the block-Jacobi
     preconditioner blocks [N, 6, 6] (node-diagonal blocks + damping)."""
-    D = node_diag_blocks(H_ii, H_jj, plans)
+    D = reduce(node_diag_blocks(H_ii, H_jj, plans))
     damp = gauge_damping(graph.node_mask, torch.diagonal(D, dim1=-2, dim2=-1), lam)
     return damp, D + torch.diag_embed(damp)
 
 
-def _pcg_solve(H_ii, H_jj, H_ij, plans: GraphPlans, edge_i, edge_j, damp, M, g, iters: int):
+def _pcg_solve(H_ii, H_jj, H_ij, plans: GraphPlans, edge_i, edge_j, damp, M, g, iters: int,
+               reduce=_same):
     """Block-Jacobi preconditioned CG for H dx = -g, ``iters`` iterations
     with a masked freeze once the residual is tiny (no host read)."""
     Minv = torch.linalg.inv_ex(M).inverse                        # [N, 6, 6]
     apply_M = lambda r: torch.einsum("npq,nq->np", Minv, r)
-    hv = lambda p: _hvp(H_ii, H_jj, H_ij, plans, edge_i, edge_j, damp, p)
+    hv = lambda p: _hvp(H_ii, H_jj, H_ij, plans, edge_i, edge_j, damp, p, reduce)
     eps = torch.tensor(1e-20, dtype=torch.float32, device=g.device)
 
     x = torch.zeros_like(g)
@@ -264,22 +275,23 @@ def gn_nan_guard(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
-def _solve_dense(graph: PoseGraph, lam, plans: GraphPlans):
+def _solve_dense(graph: PoseGraph, lam, plans: GraphPlans, reduce=_same):
     """The damped system factored by Cholesky.  ``cholesky_ex`` reports a
     failed factorization in ``info`` on the device; its factor is then not
     NaN but garbage, so the step is zeroed there explicitly."""
-    H, g = _assemble(graph, lam, plans)
+    H, g = _assemble(graph, lam, plans, reduce)
     L, info = torch.linalg.cholesky_ex(H)
     y = torch.linalg.solve_triangular(L, -g[:, None], upper=False)
     dx = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[:, 0]
     return torch.where(info == 0, dx, 0.0)
 
 
-def _solve_cg(graph: PoseGraph, lam, plans: GraphPlans, iters: int):
+def _solve_cg(graph: PoseGraph, lam, plans: GraphPlans, iters: int, reduce=_same):
     n = graph.poses.shape[0]
     H_ii, H_jj, H_ij, g, _ = _edge_blocks(graph, plans)
-    damp, M = _damping_terms(graph, H_ii, H_jj, lam, plans)
-    dx = _pcg_solve(H_ii, H_jj, H_ij, plans, graph.edge_i, graph.edge_j, damp, M, g, iters)
+    damp, M = _damping_terms(graph, H_ii, H_jj, lam, plans, reduce)
+    dx = _pcg_solve(H_ii, H_jj, H_ij, plans, graph.edge_i, graph.edge_j, damp, M, reduce(g),
+                    iters, reduce)
     return dx.reshape(6 * n)
 
 
@@ -290,24 +302,31 @@ def optimize(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig()):
     ``final_cost``, ``lambda``).  ``max_iterations`` LM iterations run, each
     a candidate step accepted where it lowers the cost, all as tensor ops on
     the graph's device with no host read."""
+    return lm_loop(graph, cfg)
+
+
+def lm_loop(graph: PoseGraph, cfg: PoseGraphConfig, reduce=_same):
+    """``optimize`` over the edges of ``graph``, with ``reduce`` summing
+    each assembled quantity and cost over the ranks that hold the other
+    edges (``parallel/batch.sharded_pose_graph_optimize``)."""
     if cfg.solver not in ("cg", "dense"):
         raise ValueError(f"unknown pose-graph solver {cfg.solver!r}")
     n = graph.poses.shape[0]
     plans = plans_for(graph.edge_i, graph.edge_j, n)
     if cfg.solver == "cg":
-        inner_solve = lambda gr, lam: _solve_cg(gr, lam, plans, cfg.pcg_iters)
+        inner_solve = lambda gr, lam: _solve_cg(gr, lam, plans, cfg.pcg_iters, reduce)
     else:
-        inner_solve = lambda gr, lam: _solve_dense(gr, lam, plans)
+        inner_solve = lambda gr, lam: _solve_dense(gr, lam, plans, reduce)
 
     dev = graph.poses.device
     lam = torch.tensor(cfg.lm_init_lambda, dtype=torch.float32, device=dev)
     factor = torch.tensor(cfg.lm_lambda_factor, dtype=torch.float32, device=dev)
-    cost0 = _cost(graph)
+    cost0 = reduce(_cost(graph))
     cost = cost0
     for _ in range(cfg.max_iterations):
         dx = gn_nan_guard(inner_solve(graph, lam))
         cand = _apply_update(graph, dx)
-        new_cost = _cost(cand)
+        new_cost = reduce(_cost(cand))
         accept = new_cost < cost
         graph = dataclasses.replace(graph, poses=torch.where(accept, cand.poses, graph.poses))
         lam = torch.where(accept, lam / factor, lam * factor)

@@ -13,8 +13,6 @@ would be [6144, 6144] on the CPU).  Tolerances: keyframe and loop flags per
 sweep, the loops and the stats() counts equal; merged, graph and corrected
 poses and the graph estimates within 2e-3 (tests/test_odometry.py's
 tolerance between NN paths); the average score within 1e-3 relative.
-(That ``map_mesh`` and ``dynamic_mode`` still raise with the graph on is
-tests/test_torch_pipeline.py::test_unported_options_raise.)
 """
 
 import numpy as np

@@ -78,7 +78,9 @@ def test_module_list_covers_the_slice():
                 "ops.pose_graph", "ops.icp", "models.graph", "io.pcd", "io.map_io",
                 # the out-of-core map, the converter and the host I/O
                 "maps.dynamic_map", "io.feature_extracter", "io.rosbag", "io.native_binner",
-                "io.native_pager", "fusion.utm", "fusion.fpd_receiver", "utils.frames"):
+                "io.native_pager", "fusion.utm", "fusion.fpd_receiver", "utils.frames",
+                # the parallel layer
+                "parallel.mesh", "parallel.distributed", "parallel.batch", "maps.sharded_map"):
         assert f"cooper_mapper_torch.{mod}" in names
 
 
@@ -90,3 +92,14 @@ def test_card_scripts_import_without_jax(script):
                'sys.modules["cooper_mapper_tpu"] = None\n'
                f"import {script}\n")
     assert res.returncode == 0, res.stderr
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    # the parallel tests' ranks are spawned processes that import the port
+    # and tests/torch_parallel_workers.py only; the runner fails a run whose
+    # ranks loaded jax or the JAX package
+    from tests import torch_parallel_workers as W
+
+    res = W.run(W.group_facts, 2, tmp_path)
+    assert [r["jax_modules"] for r in res] == [[], []]
+    assert "jax" in sys.modules          # while this process has it

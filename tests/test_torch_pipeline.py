@@ -3,8 +3,8 @@
 The voxel filter's ``keep_first``, the cube map's batched ``dedup_active``
 (both policies), the sliding-window map (``maps/local_map``) and its mapping
 step, ``io/evaluation``, ``utils/profiling``, ``utils/cloud.from_points``,
-the simulator's figure-eight trajectory, and the options of
-``SlamPipeline`` that are not ported (they raise).  The whole pipeline
+the simulator's figure-eight trajectory, and the ``map_mesh`` settings of
+``SlamPipeline`` that raise.  The whole pipeline
 drives are in tests/test_torch_pipeline_drive.py.
 
 The JAX side of the voxel, cube-map and window tests runs op by op
@@ -317,14 +317,20 @@ def test_figure_eight_trajectory_equals_jax():
                                       jsim.figure_eight_trajectory(n))
 
 
-# ---- SlamPipeline options: the one not ported raises; dynamic_mode ------------
+# ---- SlamPipeline options: map_mesh raises where the JAX package's does; dynamic_mode
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"map_mesh": object()}, "item 8"),
+    ({"mode": "local"}, "requires mode='mapping'"),
+    ({"mode": "localization"}, "requires mode='mapping'"),
+    ({"cfg": tc.PipelineConfig(matcher=tc.MatcherConfig(dynamic_mode=True))}, "dynamic_mode"),
 ])
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SlamPipeline(device="cpu", **kwargs)
+    # the striped map (maps/sharded_map) is mapping mode only and not out of
+    # core, as in the JAX package; a mesh of one rank needs no process group
+    from cooper_mapper_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match=item):
+        SlamPipeline(map_mesh=Mesh(None, 1, 0, torch.device("cpu")), **kwargs)
 
 
 def _small_sweeps(n=3, width=256):
