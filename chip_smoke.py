@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Eight paths run, each through the entry points a user calls.
+Nine paths run, each through the entry points a user calls.
 
 Odometry: the headline workload of ``bench.py``, ported: a VLP-16-like sweep
 pair (16 rings x 1024 columns) ray-cast in ``make_room_world(seed=42)``,
@@ -62,6 +62,12 @@ scan-to-map solves (``parallel/batch``), the edge-sharded pose-graph LM,
 ranks in spawned processes (NCCL on two cards, or gloo with both ranks on
 the one card); and the capacity-bucketed odometry solve of a heterogeneous
 batch.
+
+The entry scripts (``cooper_mapper_torch/examples``): the offline runner
+``run_offline.run`` over sweep files at the HDL-64E and HDL-32 presets at
+full width (64 x 2048 and 32 x 2048 points per sweep), ``python -m
+cooper_mapper_torch.examples.run_offline --selftest`` as a user runs it,
+and the four demos at their defaults.
 
 Phases, each announced on its own line as it starts:
 
@@ -304,7 +310,31 @@ Phases, each announced on its own line as it starts:
    trajectory (tests/test_sharded_map.py::TestShardedPipeline's bound), with
    the stripe's bytes and each rank's peak memory; a failing rank fails
    the run and ends the other;
-37. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
+37. the offline runner at the HDL-64E preset: 12 sweeps of 64 x 2048 at
+   the HDL-64E fan (-24.9 to 2.0 deg), 0.35 m apart in a straight line in
+   the selftest's room, written as unordered ``.npz`` files in the sensor's
+   axes; ``run(dir, out, sensor="hdl64", mode="mapping", stride=2,
+   device="cuda")``: every pose finite, the organizer's valid cells equal
+   to the points written, the first sweep's kept rings per feature class
+   equal to the CPU's and each class's count within the points whose
+   ``classify`` label differs from the CPU's (at most 0.1%, phase 29's
+   bound; the capacity cut: the rings each class keeps are printed), the
+   launches per sweep (phase 9's race launches and merges, 22
+   k-NN launches per map solve), the map's cube files written; printed: the
+   map solves' scores and gates, the drift against the straight ground
+   truth, the StageTimer stages, ms per sweep, the peak memory and the
+   smallest eigenvalue of each solve's normal matrix.  Then run() on the
+   CPU over the first 4 files (a subprocess, started after phase 38 and
+   checked after 39): the card's poses of sweeps 0 and 1 (the first
+   odometry and map solves) within 2e-3 of the CPU's; sweeps 2 and 3,
+   where these presets' thin frames let rounding grow, printed;
+38. the same at the HDL-32 preset: 32 x 2048 at -30.67 to 10.67 deg;
+39. ``python -m cooper_mapper_torch.examples.run_offline --selftest`` in a
+   subprocess (rc 0, ``SELFTEST OK``: drift below 0.25 m), then
+   ``demo_mapping``, ``demo_localization``, ``demo_graph_slam`` and
+   ``demo_wander`` main() on the card at their defaults: every pose of every
+   pipeline finite; their ATEs printed (the JAX demos gate none);
+40. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
    beside ``launches``, their ``merges`` count the calls that split M and
@@ -316,8 +346,9 @@ Phases, each announced on its own line as it starts:
    ``more_shapes``; every row's ``pipeline`` holds its launches and merges in
    phase 13's drive, its ``graph`` those inside the graph stage of phase
    20's drive, its ``parity`` those of phases 24-27's solves, its
-   ``host_io`` those of phases 30-33, and its ``parallel`` those of phases
-   34-36 (both ranks of 36 added up); nn1's ICP shape and the k-NN's
+   ``host_io`` those of phases 30-33, its ``parallel`` those of phases
+   34-36 (both ranks of 36 added up) and its ``scripts`` those of phases
+   37-39's drives in this process; nn1's ICP shape and the k-NN's
    fine-match shape of phase 21 and its converter shape of phase 31 are
    under their ``more_shapes``), then the result line.
 
@@ -327,7 +358,9 @@ There is no CPU fallback: without a card the script stops at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -337,6 +370,7 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, RINGS, BATCH, WORLD_SEED = 1024, 16, 512, 42
 GATE = 25.0                 # OdometryConfig.nn_sq_dist_max
 TIE_RTOL = 1e-5             # a true tie: two candidates' distances this close
@@ -1501,12 +1535,7 @@ def drive_pipeline(pipe, sweeps, label, imu=False, check_launches=True, start=0)
     the last IMU window)."""
     on_card = pipe.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    passes = max(pipe.cfg.odometry.dewarp_passes, 1)
-    race = {"nn1": 10 * passes, "nn1_masked": 5 * passes, "bc_races": 5 * passes,
-            "fused_races": 0}
-    race_merges = split_race_merges(pipe.cfg, race["bc_races"], pipe.device) if on_card else {}
-    race["merge_min"] = sum(race_merges.values())
-    knn_per_solve = 2 * (pipe.cfg.scan_match.max_iterations + 1)
+    race, knn_per_solve = sweep_launches(pipe.cfg, pipe.device)
     reset_launches()
     results, ms, window = [], [], None
     for i, sw in enumerate(sweeps, start):
@@ -3529,6 +3558,580 @@ def two_rank_phase(bench, one, pipe13, sweeps, truth, tally, device):
     return dict(backend=backend, ranks=ranks, seconds=seconds)
 
 
+# The repo's entry scripts (phases 37-39): the offline runner at the HDL-64E
+# and HDL-32 presets at full width, its --selftest as a user runs it, and the
+# four demos at their defaults.
+OFFLINE_SWEEPS, OFFLINE_WIDTH, OFFLINE_STEP_M, OFFLINE_CPU_SWEEPS = 12, 2048, 0.35, 4
+OFFLINE_CPU_THREADS = 4          # each of the two CPU runs: 8 cores on the card's host
+OFFLINE_CPU_TIMEOUT, SELFTEST_TIMEOUT = 420, 300
+# sensor -> (phase, name, rings, the simulator's vertical fan: the ring mapper's)
+OFFLINE_SENSORS = {"hdl64": (37, "HDL-64E", 64, (-24.9, 2.0)),
+                   "hdl32": (38, "HDL-32", 32, (-30.67, 10.67))}
+FEATURE_CLASSES = ("sharp", "less_sharp", "flat", "less_flat")
+MOVED_SHARE = 1e-3              # cells whose internals may differ card vs CPU (phase 29)
+# per sensor, the bound on max |dW| between the card's and the CPU's free
+# runs at each of the first OFFLINE_CPU_SWEEPS sweeps.  HDL-64E's sweeps 2-3
+# take the largest spread that a one-ulp move of the input files made
+# between two runs on one device (diagnose_offline_divergence.py on the
+# H100, PERF.md): from its second odometry solve on, that drive turns a
+# rounding-size difference into up to 0.0133 m at sweep 2 and 0.0317 m at
+# sweep 3, on the CPU alone.  The replay of each solve (lockstep_replay)
+# holds the card to the CPU solve by solve.
+OFFLINE_FREE_TOL = {"hdl64": (CPU_TOL, CPU_TOL, 0.014, 0.032),
+                    "hdl32": (CPU_TOL, CPU_TOL, CPU_TOL, CPU_TOL)}
+
+
+def sweep_launches(cfg, device):
+    """The launches of one odometry sweep on the split route (phase 9's, once
+    per de-warp pass), with the merges ``_split_plan`` implies on the card
+    (none on the CPU), and the k-NN launches of one map solve."""
+    passes = max(cfg.odometry.dewarp_passes, 1)
+    race = {"nn1": 10 * passes, "nn1_masked": 5 * passes, "bc_races": 5 * passes,
+            "fused_races": 0}
+    merges = (split_race_merges(cfg, race["bc_races"], device)
+              if torch.device(device).type == "cuda" else {})
+    race["merge_min"] = sum(merges.values())
+    return race, 2 * (cfg.scan_match.max_iterations + 1)
+
+
+def host_copy(tree):
+    """A copy of every tensor of ``tree`` on the host."""
+    from cooper_mapper_torch.parallel.mesh import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def device_clone(tree):
+    """A copy of every tensor of ``tree`` where it lies (no host read)."""
+    from cooper_mapper_torch.parallel.mesh import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+class PipelineProbe:
+    """Records every SlamPipeline a script builds (``module.SlamPipeline``
+    patched for the block): per ``process`` call the synchronized ms, the
+    sweep's valid cells and the kernels' launches; per map solve
+    (``laser_mapping.mapping_step``) its score, gate and frame features; per
+    solve the JtJ its degeneracy projector saw.  Inside the timed window it
+    keeps device tensors only and reads none; they are read when the block
+    ends.  With ``capture=n`` the solves of sweeps 1..n-1 are recorded for
+    ``lockstep_replay``: the pipeline's state on the host, copied before
+    the timed window, and each solve's inputs and outputs, cloned on the
+    device (a few small copies inside the window)."""
+
+    def __init__(self, module, capture=0):
+        from cooper_mapper_torch.models import laser_mapping, laser_odometry
+        from cooper_mapper_torch.ops import gauss_newton
+
+        self.module, self.mapping, self.odometry = module, laser_mapping, laser_odometry
+        self.gn, self.capture = gauss_newton, capture
+        self.pipes, self.sweeps, self.solves, self.eigs, self.lockstep = [], [], [], [], []
+        self._entry = None
+
+    def __enter__(self):
+        probe, base = self, self.module.SlamPipeline
+        self._base, self._step = base, self.mapping.mapping_step
+        self._odo_step, self._projector = self.odometry.step, self.gn.degeneracy_projector
+
+        class Probed(base):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                probe.pipes.append(self)
+
+            def process(self, sweep, *args, **kw):
+                i = len(probe.sweeps)
+                if 0 < i < probe.capture:
+                    # the solves' state as this sweep finds it, before the window
+                    probe._entry = dict(sweep=i, odo=host_copy(self.odo),
+                                        matcher=host_copy(self.matcher),
+                                        map=host_copy(self.map_state))
+                sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+                before, merges = read_launches(), read_merges()
+                sync()
+                t0 = time.perf_counter()
+                r = super().process(sweep, *args, **kw)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = read_launches()
+                probe.sweeps.append(dict(ms=ms, cells=int(sweep.mask.sum()),
+                                         launches={k: after[k] - before[k] for k in after},
+                                         merges={k: v - merges[k]
+                                                 for k, v in read_merges().items()},
+                                         solved=r.mapping_success))
+                if probe._entry is not None:
+                    probe.lockstep.append(probe._entry)
+                    probe._entry = None
+                return r
+
+        def odo_step(state, fc, cfg, *args, **kw):
+            if probe._entry is not None:
+                probe._entry.update(fc=device_clone(fc), odo_cfg=cfg)
+            out = probe._odo_step(state, fc, cfg, *args, **kw)
+            if probe._entry is not None:
+                probe._entry["odo_out"] = device_clone(out[1])
+            return out
+
+        def step(matcher, map_state, *args, **kw):
+            e = probe._entry
+            if e is not None:
+                e.update(map_args=device_clone(args), map_kw=kw)
+            out = probe._step(matcher, map_state, *args, **kw)
+            mo = out[2]
+            probe.solves.append((mo.result.score, mo.result.success, mo.corner_ds.mask,
+                                 mo.surf_ds.mask))
+            if e is not None:
+                e["map_out"] = device_clone(mo)
+            return out
+
+        def projector(JtJ, eig_threshold, *args, **kw):
+            probe.eigs.append((JtJ.detach().clone(), eig_threshold))
+            return probe._projector(JtJ, eig_threshold, *args, **kw)
+
+        self.module.SlamPipeline = Probed
+        self.mapping.mapping_step = step
+        self.odometry.step = odo_step
+        self.gn.degeneracy_projector = projector
+        return self
+
+    def __exit__(self, *exc):
+        self.module.SlamPipeline = self._base
+        self.mapping.mapping_step = self._step
+        self.odometry.step = self._odo_step
+        self.gn.degeneracy_projector = self._projector
+        # the reads, after every timed window
+        self.solves = [(round(float(s), 1), bool(ok), int(cm.sum()) + int(sm.sum()))
+                       for s, ok, cm, sm in self.solves]
+        for e in self.lockstep:
+            if "map_out" not in e:          # no map solve in this sweep
+                del e["map"], e["matcher"]
+        self.lockstep = [host_copy(e) for e in self.lockstep]
+        return False
+
+    def smallest_eigenvalues(self):
+        """Per threshold (10: odometry, 100: scan match), the smallest
+        eigenvalue of JtJ at each solve's iteration 0, in solve order."""
+        out = {}
+        for JtJ, thr in self.eigs:
+            ev = torch.linalg.eigvalsh(JtJ.reshape(-1, 6, 6)[0].double())
+            out.setdefault(float(thr), []).append(round(float(ev[0]), 2))
+        return out
+
+    def tally(self, tally):
+        """Add the recorded process calls' launches and merges to ``tally``."""
+        for s in self.sweeps:
+            add_counts(tally, s["launches"], s["merges"])
+
+
+def ulp_moved(c, direction):
+    """Cloud ``c`` with every valid point's coordinates one ulp up (+1) or
+    down (-1): a move of rounding size."""
+    far = torch.full_like(c.xyz, direction * float("inf"))
+    return dataclasses.replace(c, xyz=torch.where(c.mask[:, None], torch.nextafter(c.xyz, far),
+                                                  c.xyz))
+
+
+def lockstep_replay(entries):
+    """Each recorded solve again on this process's device (the CPU), from
+    the card's own state and inputs: one solve's difference, free of what
+    earlier sweeps carried in.  Per sweep: max |dT| of the odometry pose,
+    the matched features on both, max |dxyz| of the end-projected clouds
+    handed to the mapper, and, where max |dT| exceeds CPU_TOL (the bound
+    it is then held to depends on it), the witness ``odo_ulp``: the largest move of the CPU's own odometry pose
+    when every input point moves one ulp up or down (else None); for a map
+    solve max |dW|, the scores and the points by which the downsampled
+    frames differ."""
+    from cooper_mapper_torch.models import laser_mapping, laser_odometry
+
+    dmax = lambda a, b: float((a - b).abs().max())
+    out = []
+    for e in entries:
+        _, oo = laser_odometry.step(e["odo"], e["fc"], e["odo_cfg"])
+        card = e["odo_out"]
+        odo, ulp = dmax(oo.T_sum, card.T_sum), []
+        for d in ((1, -1) if odo > CPU_TOL else ()):
+            fc = dataclasses.replace(e["fc"], **{n: ulp_moved(getattr(e["fc"], n), d)
+                                                 for n in FEATURE_CLASSES})
+            st = dataclasses.replace(e["odo"], last_corner=ulp_moved(e["odo"].last_corner, d),
+                                     last_surf=ulp_moved(e["odo"].last_surf, d))
+            ulp.append(dmax(laser_odometry.step(st, fc, e["odo_cfg"])[1].T_sum, oo.T_sum))
+        row = dict(sweep=e["sweep"], odo=odo, odo_ulp=max(ulp, default=None),
+                   matched=[int(oo.n_matched), int(card.n_matched)],
+                   projected=max(dmax(oo.corner_for_map.xyz, card.corner_for_map.xyz),
+                                 dmax(oo.surf_for_map.xyz, card.surf_for_map.xyz)))
+        if "map_out" in e:
+            # on a copy: the step updates the map in place
+            _, _, mo = laser_mapping.mapping_step(e["matcher"], device_clone(e["map"]),
+                                                  *e["map_args"], **e["map_kw"])
+            cm = e["map_out"]
+            pts = lambda c: {tuple(x) for x in c.xyz[c.mask].tolist()}
+            row.update(map=dmax(mo.W, cm.W),
+                       score=[float(mo.result.score), float(cm.result.score)],
+                       frame=len(pts(mo.corner_ds) ^ pts(cm.corner_ds))
+                       + len(pts(mo.surf_ds) ^ pts(cm.surf_ds)))
+        out.append(row)
+    return out
+
+
+def feature_rings(fc):
+    """Per feature class: (valid points, capacity, the rings it keeps)."""
+    out = {}
+    for name in FEATURE_CLASSES:
+        c = getattr(fc, name)
+        out[name] = (int(c.mask.sum()), c.capacity, sorted(set(c.ring[c.mask].tolist())))
+    return out
+
+
+def ring_spans(rings):
+    """[0, 1, 2, 5, 6] -> '0-2, 5-6'."""
+    spans, start = [], None
+    for i, r in enumerate(rings):
+        if start is None:
+            start = r
+        if i + 1 == len(rings) or rings[i + 1] != r + 1:
+            spans.append(f"{start}-{r}" if r != start else f"{r}")
+            start = None
+    return ", ".join(spans) or "none"
+
+
+def compare_features(pts, cfg, mapper, device):
+    """One sweep's organized cells and features on the card against the
+    CPU's.  The organizer must give the same cells, bit for bit.  The
+    features may differ only where a cell's internals do: classify's label
+    (an ulp of eig3's arccos / cos decides a threshold; phase 29), its
+    scan status, or its side of the curvature threshold.  Such a moved cell
+    can change the picks of its (ring, feature region).  So per compacted
+    class, the points outside those regions must be the same points in the
+    same ring-major order, bit for bit, but for a tail at most as long as
+    the points inside them (a class at capacity shifts its cut by those);
+    less_flat, voxel-filtered, by at most 4 points per moved cell (the
+    bound of test_torch_features.py).  And the card's sharp and flat must
+    hold exactly the first ``capacity`` cells of its own pick masks in
+    ring-major order: the compaction at overflow.  Returns (feature_rings
+    on the card and on the CPU, the moved cells, the problems found)."""
+    from cooper_mapper_torch.models import scan_registration as sr
+    from cooper_mapper_torch.ops import features
+
+    thr = cfg.registration.surface_curvature_threshold
+    got = {}
+    for dev in (device, "cpu"):
+        sw = sr.organize_unordered(pts, cfg.registration, mapper, device=dev)
+        got[dev] = host_copy((sw, *features.extract_features_debug(sw, cfg.registration)))
+    (swg, fcg, dg), (swc, fcc, dc) = got[device], got["cpu"]
+    problems = []
+    if not all(torch.equal(getattr(swg, f), getattr(swc, f)) for f in ("xyz", "mask", "rel_time")):
+        problems.append("the organized sweeps differ")
+    moved = ((dg.label != dc.label) | (dg.status != dc.status)
+             | ((dg.curvature < thr) != (dc.curvature < thr))) & swc.mask
+    n_moved = int(moved.sum())
+    if n_moved > MOVED_SHARE * int(swc.mask.sum()):
+        problems.append(f"{n_moved} cells' internals differ")
+    rows, cols = torch.nonzero(swc.mask, as_tuple=True)
+    cell_of = {tuple(x): (r, c) for x, r, c in zip(swc.xyz[rows, cols].tolist(), rows.tolist(),
+                                                   cols.tolist())}
+    region = dc.region_id
+    hit = {(r, int(region[r, c])) for r, c in moved.nonzero().tolist()}
+    inside = lambda p: (cell_of[p[0]][0], int(region[cell_of[p[0]]])) in hit
+    kept = lambda c: list(zip(map(tuple, c.xyz[c.mask].tolist()), c.ring[c.mask].tolist(),
+                              c.rel_time[c.mask].tolist()))
+    for name in FEATURE_CLASSES:
+        a, b = getattr(fcg, name), getattr(fcc, name)
+        if n_moved == 0 and not all(torch.equal(getattr(a, f), getattr(b, f))
+                                    for f in ("xyz", "mask", "ring", "rel_time")):
+            problems.append(f"{name} differs with no cell moved")
+        pa, pb = kept(a), kept(b)
+        if name == "less_flat":
+            if len(set(pa) ^ set(pb)) > 4 * n_moved:
+                problems.append(f"less_flat differs by {len(set(pa) ^ set(pb))} points")
+            continue
+        fa, fb = [p for p in pa if not inside(p)], [p for p in pb if not inside(p)]
+        n = min(len(fa), len(fb))
+        if fa[:n] != fb[:n] or abs(len(fa) - len(fb)) > len(pa) + len(pb) - len(fa) - len(fb):
+            problems.append(f"{name} differs outside the moved cells' regions")
+    for name, picked in (("sharp", dg.sharp_picked), ("flat", dg.flat_picked)):
+        c = getattr(fcg, name)
+        n = int(c.mask.sum())
+        want = (swg.xyz[picked][:c.capacity], torch.nonzero(picked)[:c.capacity, 0],
+                swg.rel_time[picked][:c.capacity])
+        if (n != len(want[0]) or not bool(c.mask[:n].all())
+                or not all(torch.equal(x[:n], w.to(x.dtype))
+                           for x, w in zip((c.xyz, c.ring, c.rel_time), want))):
+            problems.append(f"the card's {name} is not the first {c.capacity} picked cells")
+    return feature_rings(fcg), feature_rings(fcc), n_moved, problems
+
+
+def offline_cpu_child(sweep_dir, out_dir, sensor, result, lockstep):
+    """The CPU side of a phase 37 / 38 comparison (a subprocess): run() on
+    the CPU over the first sweeps, then the card's recorded solves replayed
+    (``lockstep_replay``).  The trajectory is saved to ``result``, the
+    replay to ``result``.json."""
+    torch.set_num_threads(OFFLINE_CPU_THREADS)
+    from cooper_mapper_torch.examples import run_offline
+
+    t0 = time.perf_counter()
+    pipe = run_offline.run(sweep_dir, out_dir, sensor, "mapping", 2, device="cpu")
+    np.save(result, np.stack(pipe.trajectory))
+    del pipe
+    t1 = time.perf_counter()
+    rows = lockstep_replay(torch.load(lockstep, weights_only=False))
+    with open(result + ".json", "w") as f:
+        json.dump(dict(rows=rows, run_s=t1 - t0, replay_s=time.perf_counter() - t1), f)
+
+
+def offline_phase(sensor, root, tally, device):
+    """The offline runner (``examples/run_offline.run``, the port's) at a
+    sensor preset at full width: its sweeps written as files
+    (``run_offline.write_drive``), then run() as a user calls it, with the
+    solves of the first sweeps recorded for the CPU's replay.  The CPU side
+    starts later in the background (``offline_cpu_start``) and is checked
+    by ``offline_cpu_check``."""
+    import shutil
+
+    from cooper_mapper_torch.examples import run_offline
+
+    phase, label, n_rings, vfov = OFFLINE_SENSORS[sensor]
+    preset, mapper = run_offline.SENSORS[sensor]
+    cfg = preset()
+    t0 = time.perf_counter()
+    log(f"[{phase}] the offline runner at the {label} preset ({sensor}(): {n_rings} x "
+        f"{cfg.registration.max_points_per_ring}, the default capacities and map): "
+        f"{OFFLINE_SWEEPS} sweeps of {n_rings} x {OFFLINE_WIDTH} at vfov {vfov}, "
+        f"{OFFLINE_STEP_M} m apart in a straight line in the selftest's room, written by "
+        f"run_offline.write_drive; run(dir, out, sensor={sensor!r}, mode='mapping', stride=2, "
+        f"device={device!r})")
+    d = os.path.join(root, sensor)
+    sweep_dir, cpu_dir = os.path.join(d, "sweeps"), os.path.join(d, "sweeps_cpu")
+    written = run_offline.write_drive(sweep_dir, OFFLINE_SWEEPS, n_rings, OFFLINE_WIDTH, vfov,
+                                      OFFLINE_STEP_M, device)
+    os.makedirs(cpu_dir)
+    for i in range(OFFLINE_CPU_SWEEPS):
+        name = f"sweep_{i:04d}.npz"
+        shutil.copy(os.path.join(sweep_dir, name), os.path.join(cpu_dir, name))
+    log(f"    points per sweep written: {written}")
+    # the first sweep's organizer and features on the card and on the CPU:
+    # the capacity cut, and the compaction at overflow
+    first = run_offline.load_sweep_file(os.path.join(sweep_dir, "sweep_0000.npz"))
+    feats, feats_cpu, n_moved, problems = compare_features(first, cfg, mapper, device)
+    for name, (n, cap, rings) in feats.items():
+        log(f"    sweep 0 {name}: {n} of {cap} (CPU {feats_cpu[name][0]}), rings "
+            f"{ring_spans(rings)} of 0-{n_rings - 1} (CPU {ring_spans(feats_cpu[name][2])})")
+    log(f"    sweep 0 on the card vs the CPU: organized cells equal, {n_moved} of {len(first)} "
+        f"cells' label / status / curvature side differ; every class the same points in the "
+        f"same order outside those cells' regions, and the card's sharp and flat the first "
+        f"cells of its picks: {not problems}")
+    if problems:
+        fail(f"phase {phase}: the first sweep on the card vs the CPU: {problems}")
+
+    race, knn_per_solve = sweep_launches(cfg, device)
+    # the organizer's host time per sweep (to the card included)
+    organize, org_ms = run_offline.scan_registration.organize_unordered, []
+
+    def timed_organize(*args, **kw):
+        t1 = time.perf_counter()
+        sw = organize(*args, **kw)
+        torch.cuda.synchronize()
+        org_ms.append((time.perf_counter() - t1) * 1e3)
+        return sw
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run_offline.scan_registration.organize_unordered = timed_organize
+    try:
+        with PipelineProbe(run_offline, capture=OFFLINE_CPU_SWEEPS) as probe:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                pipe = run_offline.run(sweep_dir, os.path.join(d, "out"), sensor, "mapping", 2,
+                                       device=device)
+    finally:
+        run_offline.scan_registration.organize_unordered = organize
+    # the run's own peak: above what earlier phases still hold
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    lockstep = os.path.join(d, "lockstep.pt")
+    torch.save(probe.lockstep, lockstep)
+    printed = buf.getvalue().strip().splitlines()
+    log(f"    run() printed {len(printed)} lines; the last: {printed[-1][:300]}")
+    traj = np.stack(pipe.trajectory)
+    cells = [s["cells"] for s in probe.sweeps]
+    bad = []
+    for i, s in enumerate(probe.sweeps):
+        want = (dict.fromkeys(s["launches"], 0) if i == 0 else
+                dict(race, knn=knn_per_solve if s["solved"] is not None else 0))
+        if s["launches"] != want:
+            bad.append((i, s["launches"], want))
+    probe.tally(tally)
+    gt_end = np.array([0.0, 0.0, OFFLINE_STEP_M * (OFFLINE_SWEEPS - 1)])
+    drift = traj[-1, :3, 3] - gt_end
+    # the sweeps after those whose solves were recorded
+    ms = [s["ms"] for s in probe.sweeps[OFFLINE_CPU_SWEEPS:]]
+    maps = sorted(os.listdir(os.path.join(d, "out", "map")))
+    log(f"    map solves (score, gate, frame features): {probe.solves}; stats {pipe.stats()}")
+    log(f"    the smallest eigenvalue of JtJ at each solve's iteration 0, by the solve's "
+        f"degeneracy threshold (10: odometry, 100: map): {probe.smallest_eigenvalues()}")
+    log(f"    end position {traj[-1, :3, 3].round(4).tolist()} vs the straight ground truth "
+        f"{gt_end.round(4).tolist()}: drift {float(np.linalg.norm(drift)):.4f} m (x "
+        f"{drift[0]:+.4f}, height {drift[1]:+.4f}, along {drift[2]:+.4f}); every pose finite "
+        f"{bool(np.isfinite(traj).all())}")
+    log(f"    organized valid cells per sweep {cells} (points written: equal "
+        f"{cells == written}); launches per odometry sweep {race}, k-NN {knn_per_solve} per "
+        f"map solve: every sweep as expected {not bad}")
+    log(f"    ms per sweep (best / median of sweeps {OFFLINE_CPU_SWEEPS}..{OFFLINE_SWEEPS - 1}): "
+        f"{ms_stat(ms)}; organize_unordered on the host {ms_brief(org_ms[1:])} ms per sweep "
+        f"(outside process()); the run's peak memory {peak:.1f} MiB above the "
+        f"{base / 2**20:.1f} MiB held before it; map files {len(maps)}")
+    log("    StageTimer report (sweeps 1-3 copy their solves' inputs on the card: a few "
+        "small clones):\n"
+        + "\n".join("      " + ln for ln in pipe.timer.report().split("\n")))
+    if not np.isfinite(traj).all():
+        fail(f"phase {phase}: a pose is not finite")
+    if cells != written:
+        fail(f"phase {phase}: the organizer's valid cells {cells} differ from the points "
+             f"written {written}")
+    if bad:
+        fail(f"phase {phase}: sweeps launched other than expected (sweep, got, want): {bad}")
+    if "index.txt" not in maps or len(maps) < 2:
+        fail(f"phase {phase}: the map's cube files were not written: {maps}")
+    seconds = time.perf_counter() - t0
+    log(f"    phase {phase}: {seconds:.1f} s")
+    stages = {k: stage_ms(pipe.timer, k) for k in pipe.timer.calls}
+    return dict(trajectory=traj, sweep_dir=cpu_dir, dir=d, lockstep=lockstep, feats=feats,
+                ms=ms, org_ms=float(np.median(org_ms[1:])),
+                peak=peak, drift=float(np.linalg.norm(drift)), height=float(drift[1]),
+                solves=probe.solves, stages=stages, seconds=seconds)
+
+
+def offline_cpu_start(sensor, run):
+    """Start phase 37 / 38's CPU side in a subprocess."""
+    res = os.path.join(run["dir"], "cpu.npy")
+    log_path = os.path.join(run["dir"], "cpu.log")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.offline_cpu_child({run['sweep_dir']!r}, "
+            f"{os.path.join(run['dir'], 'out_cpu')!r}, {sensor!r}, {res!r}, "
+            f"{run['lockstep']!r})")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                stderr=subprocess.STDOUT, cwd=ROOT)
+    return dict(proc=proc, result=res, log=log_path, t0=time.perf_counter())
+
+
+def offline_cpu_check(sensor, run, child):
+    """Phase 37 / 38's CPU comparison.  The replay: every solve of sweeps
+    1-3 from the card's own state within CPU_TOL (phase 17's bound) of the
+    card's.  The free run: the first sweeps' poses within the sensor's
+    OFFLINE_FREE_TOL of the CPU run's."""
+    phase, label, _, _ = OFFLINE_SENSORS[sensor]
+    try:
+        rc = child["proc"].wait(timeout=max(1.0, OFFLINE_CPU_TIMEOUT
+                                            - (time.perf_counter() - child["t0"])))
+    except subprocess.TimeoutExpired:
+        child["proc"].kill()
+        child["proc"].wait()
+        fail(f"phase {phase}: the CPU run outlived {OFFLINE_CPU_TIMEOUT} s")
+    seconds = time.perf_counter() - child["t0"]
+    if rc != 0:
+        with open(child["log"]) as f:
+            fail(f"phase {phase}: the CPU run failed (rc {rc}): {f.read()[-3000:]}")
+    cpu = np.load(child["result"])
+    with open(child["result"] + ".json") as f:
+        replay = json.load(f)
+    rows = replay["rows"]
+    dx = np.abs(run["trajectory"][:len(cpu)] - cpu).max(axis=(1, 2))
+    tol = OFFLINE_FREE_TOL[sensor]
+    # a solve's bound: CPU_TOL, or twice what a one-ulp move of its inputs
+    # does to the CPU's own pose where that is more (two samples of a spread)
+    over = [r["sweep"] for r in rows
+            if r["odo"] > max(CPU_TOL, 2 * (r["odo_ulp"] or 0.0))
+            or r.get("map", 0.0) > CPU_TOL]
+    log(f"[{phase}] {label} card vs CPU over the first {len(cpu)} files ({OFFLINE_CPU_THREADS} "
+        f"threads, {seconds:.1f} s in the background: the run {replay['run_s']:.1f} s, the "
+        f"replay {replay['replay_s']:.1f} s).  Each solve of sweeps 1-3 replayed on the CPU "
+        f"from the card's state and inputs (odometry: max |dT|, the CPU's own move under "
+        f"one-ulp moves of the inputs where max |dT| > {CPU_TOL}, matched card / CPU, max "
+        f"|dxyz| of the projected "
+        f"clouds; map: max |dW|, scores, frame points differing): {rows}; odometry gated at "
+        f"max({CPU_TOL}, 2 x odo_ulp), map at {CPU_TOL}.  The free run, max |dW| per sweep "
+        f"{dx.round(6).tolist()}; gated at {tol}")
+    if len(cpu) != OFFLINE_CPU_SWEEPS or len(rows) != OFFLINE_CPU_SWEEPS - 1:
+        fail(f"phase {phase}: the CPU side covered {len(cpu)} sweeps and replayed {len(rows)}")
+    if over:
+        fail(f"phase {phase}: the solves of sweeps {over} on the card part from the same "
+             f"solves on the CPU beyond their bound")
+    if any(dx[i] > t for i, t in enumerate(tol)):
+        fail(f"phase {phase}: the card's and the CPU's runs of the first sweeps disagree")
+    return dict(dx=dx.tolist(), local=max(max(r["odo"], r.get("map", 0.0)) for r in rows))
+
+
+def stop_children(children):
+    """Kill the CPU runs still going."""
+    for child in children:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+
+
+# the demos' defaults (the JAX scripts'): demo_mapping's sweeps, demo_wander's steps
+DEMO_MAPPING_SWEEPS, DEMO_WANDER_STEPS = 20, 15
+
+
+def scripts_phase(root, tally, device):
+    """The port's scripts as a user runs them: ``python -m
+    cooper_mapper_torch.examples.run_offline --selftest`` in a subprocess
+    (the JAX selftest's own gate), then each demo's main() on the card at
+    the JAX script's defaults: every pose finite, the ATEs printed."""
+    from cooper_mapper_torch.examples import (demo_graph_slam, demo_localization, demo_mapping,
+                                              demo_wander)
+
+    t0 = time.perf_counter()
+    log("[39] the port's scripts: python -m cooper_mapper_torch.examples.run_offline --selftest "
+        "(a subprocess), then demo_mapping, demo_localization, demo_graph_slam and demo_wander "
+        f"main() on {device} at their defaults")
+    res = subprocess.run([sys.executable, "-m", "cooper_mapper_torch.examples.run_offline",
+                          "--selftest"], capture_output=True, text=True, cwd=ROOT,
+                         timeout=SELFTEST_TIMEOUT)
+    selftest_s = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    drift = [ln for ln in lines if "drift" in ln]
+    log(f"    --selftest: rc {res.returncode} in {selftest_s:.1f} s; {drift}; last line "
+        f"{lines[-1] if lines else None!r}")
+    if res.returncode != 0 or not lines or lines[-1] != "SELFTEST OK":
+        fail(f"phase 39: run_offline --selftest failed: {res.stdout[-2000:]} {res.stderr[-3000:]}")
+
+    demos = {
+        "demo_mapping": (demo_mapping, lambda: demo_mapping.main(
+            DEMO_MAPPING_SWEEPS, os.path.join(root, "demo_map"), device=device),
+            ("ATE rmse",)),
+        "demo_localization": (demo_localization, lambda: demo_localization.main(
+            os.path.join(root, "demo_loc_map"), device=device),
+            ("mapping done", "mean localization error")),
+        "demo_graph_slam": (demo_graph_slam, lambda: demo_graph_slam.main(
+            os.path.join(root, "demo_graph"), device=device),
+            ("sweeps:", "ATE rmse", "keyframe ATE", "end-pose")),
+        "demo_wander": (demo_wander, lambda: demo_wander.main(DEMO_WANDER_STEPS, device=device),
+                        ("wander ATE",)),
+    }
+    out = {"selftest_s": selftest_s, "selftest": drift}
+    for name, (module, call, keys) in demos.items():
+        t1 = time.perf_counter()
+        buf = io.StringIO()
+        with PipelineProbe(module) as probe, contextlib.redirect_stdout(buf):
+            call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        probe.tally(tally)
+        printed = buf.getvalue().strip().splitlines()
+        shown = [ln.strip() for ln in printed if ln.strip().startswith(keys)]
+        finite = all(np.isfinite(np.stack(p.trajectory)).all() for p in probe.pipes)
+        n = sum(len(p.trajectory) for p in probe.pipes)
+        log(f"    {name}: {seconds:.1f} s, {len(probe.pipes)} pipelines, {n} sweeps, every pose "
+            f"finite {finite}, map solves {len(probe.solves)}; {shown}")
+        if not finite or n == 0:
+            fail(f"phase 39: {name} gave a non-finite pose")
+        out[name] = dict(seconds=seconds, shown=shown)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 39: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -3630,6 +4233,23 @@ def main():
     bucketed = bucketed_phase(sharp1, flat1, ref_c, ref_s, x0, par)
     two = two_rank_phase((sharp, flat, ref_c, ref_s, x0), one, pipe13, sweeps, truth, par,
                          device)
+    # the entry scripts; every launch of their drives in this process is
+    # tallied under "scripts" (the --selftest subprocess's are its own)
+    import tempfile
+
+    scripts, children = {}, {}
+    t37 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            offline = {s: offline_phase(s, root, scripts, device) for s in OFFLINE_SENSORS}
+            # the CPU runs of the first sweeps, beside phase 39
+            children = {s: offline_cpu_start(s, offline[s]) for s in OFFLINE_SENSORS}
+            script_run = scripts_phase(root, scripts, device)
+            for s in OFFLINE_SENSORS:
+                offline[s]["cpu"] = offline_cpu_check(s, offline[s], children[s])
+        finally:
+            stop_children(children.values())
+    scripts_s = time.perf_counter() - t37
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -3668,6 +4288,8 @@ def main():
         row["host_io"] = host_io[row["name"]]
         # the parallel layer (34-36): the mesh of one, the buckets, both ranks of 36
         row["parallel"] = par.get(row["name"], {"launches": 0, "merges": 0})
+        # the entry scripts (37-39): run() at HDL-64E and HDL-32, the four demos
+        row["scripts"] = scripts.get(row["name"], {"launches": 0, "merges": 0})
         if row["name"] in single_stream:
             # launches: the single-stream drive's on the split route
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
@@ -3679,7 +4301,17 @@ def main():
     sm_scenes = "; ".join(f"eig {t:.0f}: degenerate {v['degenerate']}, signs {v['signs']}, "
                           f"|dx| direct {v['direct']:.3g} / card-signed {v['signed']:.3g}"
                           for t, v in sm_parity["scenes"].items())
-    log(f"[37] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
+    off_stat = lambda s, v: (f"{OFFLINE_SENSORS[s][1]} ms per sweep {min(v['ms']):.1f} / "
+                             f"{float(np.median(v['ms'])):.1f}, drift {v['drift']:.4f} m "
+                             f"(height {v['height']:+.4f}), organize_unordered "
+                             f"{v['org_ms']:.1f} ms, peak {v['peak']:.1f} MiB, card vs "
+                             f"CPU per solve {v['cpu']['local']:.3g}, free run "
+                             f"{[round(x, 6) for x in v['cpu']['dx']]}, "
+                             f"less_flat rings "
+                             f"{ring_spans(v['feats']['less_flat'][2])}, map solves passing "
+                             f"the gate {sum(ok for _, ok, _ in v['solves'])} of "
+                             f"{len(v['solves'])}")
+    log(f"[40] summary: build {build_s:.2f} s; odometry {sps_best:.1f} solves/s best "
         f"({sps_med:.1f} median) at B={BATCH}; scan-to-map {sm_best:.1f} solves/s best "
         f"({sm_med:.1f} median) at B={SM_BATCH}; single stream ms per sweep (best / median) "
         + "; ".join(f"{r} route odometry {v['stat']['odometry'][0]:.1f} / "
@@ -3734,7 +4366,11 @@ def main():
                     f"{v['stripe_bytes'] / 2**20:.1f} MiB, peak {v['peak_mib']:.1f} MiB"
                     for r, v in enumerate(two["ranks"]))
         + f"; phases 34-36 {one['seconds'] + bucketed['seconds'] + two['seconds']:.1f} s; "
-        f"on {name} ({smi})")
+        + "; ".join(off_stat(s, v) for s, v in offline.items())
+        + f"; selftest {script_run['selftest']}; demos "
+        + "; ".join(f"{k} {script_run[k]['shown']}" for k in
+                    ("demo_mapping", "demo_localization", "demo_graph_slam", "demo_wander"))
+        + f"; phases 37-39 {scripts_s:.1f} s with the CPU runs' wait; on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,11 +1,12 @@
 """Point-to-line / point-to-plane residuals and the 5-NN line and plane fits
 (port of ``cooper_mapper_tpu/ops/residuals.py``; feature_utils.h:17-204).
 
-Batched over any leading dimensions; validity comes back as masks.  Only the
-component-plane fits (``fit_line_planes`` / ``fit_plane_planes``) are
-ported: the scan-to-map solve is their one caller.  They keep the JAX
-package's order of f32 operations (Python ``sum`` over the K neighbours, the
-centred adjugate, the 1e-8 diagonal floor).
+Batched over any leading dimensions; validity comes back as masks.  The
+scan-to-map solve calls the component-plane fits (``fit_line_planes`` /
+``fit_plane_planes``), which keep the JAX package's order of f32 operations
+(Python ``sum`` over the K neighbours, the centred adjugate, the 1e-8
+diagonal floor).  ``fit_line`` / ``fit_plane`` are the array forms of the
+library's API, on ``torch.linalg`` as the JAX ones are on ``jnp.linalg``.
 """
 
 from __future__ import annotations
@@ -78,6 +79,58 @@ def surf_coeff_map(plane, X, slope=0.9, weight_min=0.1, eps=1e-12):
     w = 1.0 - slope * torch.abs(signed) / xnorm
     valid = w > weight_min
     return plane[..., :3] * w[..., None], signed * w, valid
+
+
+def fit_line(neighbors, mask=None, eig_ratio=5.0, half_length=0.1):
+    """5-point PCA line fit (findLine, feature_utils.h:108-154).
+
+    neighbors: [..., K, 3].  Returns (A, B, valid): two points
+    ``half_length`` either side of the centroid along the principal
+    direction (its sign is the eigensolver's); valid iff
+    lambda_max > eig_ratio * lambda_mid.
+    """
+    k = neighbors.shape[-2]
+    centroid = torch.mean(neighbors, dim=-2, keepdim=True)
+    a = neighbors - centroid
+    cov = torch.einsum("...ki,...kj->...ij", a, a) / k
+    evals, evecs = torch.linalg.eigh(cov)
+    v = evecs[..., :, 2]
+    valid = evals[..., 2] > eig_ratio * evals[..., 1]
+    c = centroid[..., 0, :]
+    A = c - half_length * v
+    B = c + half_length * v
+    if mask is not None:
+        valid = valid & mask
+    return A, B, valid
+
+
+def fit_plane(neighbors, mask=None, max_dist=0.2, planar_ratio=0.05, eps=1e-12):
+    """5-point least-squares plane (findPlane, feature_utils.h:156-204).
+
+    Solves n . p = -1 in the least-squares sense, normalizes, sets
+    d = -n . centroid, and rejects a fit with a neighbour further than
+    ``max_dist`` from the plane, and (``planar_ratio > 0``) a collinear
+    neighbour set: lambda_mid <= planar_ratio * lambda_max.  Returns
+    (plane [..., 4], valid).
+    """
+    k = neighbors.shape[-2]
+    AtA = torch.einsum("...ki,...kj->...ij", neighbors, neighbors)
+    Atb = -torch.sum(neighbors, dim=-2)
+    eye = torch.eye(3, dtype=neighbors.dtype, device=neighbors.device)
+    n = torch.linalg.solve(AtA + 1e-8 * eye, Atb[..., None])[..., 0]
+    n = n / torch.clamp(_norm(n)[..., None], min=eps)
+    centroid = torch.mean(neighbors, dim=-2)
+    d = -torch.sum(n * centroid, dim=-1)
+    dist = torch.abs(torch.einsum("...ki,...i->...k", neighbors, n) + d[..., None])
+    valid = torch.all(dist <= max_dist, dim=-1)
+    if planar_ratio > 0.0:
+        a = neighbors - centroid[..., None, :]
+        cov = torch.einsum("...ki,...kj->...ij", a, a) / k
+        evals = torch.linalg.eigvalsh(cov)
+        valid = valid & (evals[..., 1] > planar_ratio * evals[..., 2])
+    if mask is not None:
+        valid = valid & mask
+    return torch.cat([n, d[..., None]], dim=-1), valid
 
 
 def fit_line_planes(px, py, pz, mask=None, eig_ratio=5.0, half_length=0.1):

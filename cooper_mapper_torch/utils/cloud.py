@@ -30,6 +30,14 @@ class Cloud:
     def capacity(self) -> int:
         return self.xyz.shape[-2]
 
+    def count(self):
+        return torch.sum(self.mask.to(torch.int32), dim=-1, dtype=torch.int32)
+
+    def masked_xyz(self, fill: float = FAR):
+        """xyz with invalid points pushed to a far sentinel (so they lose any
+        nearest-neighbour race without branching)."""
+        return self.xyz.masked_fill(~self.mask[..., None], fill)
+
 
 def make(xyz, mask, ring=None, rel_time=None) -> Cloud:
     n = xyz.shape[:-1]

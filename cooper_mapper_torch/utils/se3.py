@@ -1,6 +1,5 @@
-"""SE(3) / Euler-convention and quaternion math: the part of
-``cooper_mapper_tpu/utils/se3.py`` that the twist warps, the simulator, the
-odometry and mapping stages, the IMU de-warp and the UKF fusion use.
+"""SE(3) / Euler-convention and quaternion math (port of
+``cooper_mapper_tpu/utils/se3.py``).
 
 Conventions are the JAX package's: ``TZYX`` poses ``p' = Rz Ry Rx p + t``,
 Euler 6-vectors ``[rx, ry, rz, tx, ty, tz]``, twists ``[v, w]`` (translation
@@ -84,6 +83,15 @@ def mat_to_euler6(T):
     return torch.cat([torch.stack([rx, ry, rz], -1), T[..., :3, 3]], dim=-1)
 
 
+def identity_mat(dtype=torch.float32, device="cuda"):
+    return torch.eye(4, dtype=dtype, device=device)
+
+
+def compose(A, B):
+    """A @ B for (...,4,4) transforms."""
+    return A @ B
+
+
 def inverse(T):
     """Closed-form inverse of a rigid transform (...,4,4)."""
     R = T[..., :3, :3]
@@ -151,6 +159,13 @@ def rot_to_quat(R):
     q = torch.gather(cands, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
     q = q * torch.sign(q[..., :1] + 1e-30)       # w >= 0
     return quat_normalize(q)
+
+
+def quat_from_axis_angle(axis, angle):
+    """(..., 3) axis (any length), (...,) angle -> (..., 4) (w, x, y, z)."""
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis, dim=-1, keepdim=True), min=1e-12)
+    half = angle[..., None] * 0.5
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
 
 
 def quat_slerp(q0, q1, u):

@@ -52,6 +52,12 @@ def point_to_map(x, points):
     )
 
 
+def map_to_point(x, points):
+    """Inverse of point_to_map (pointAssociateTobeMapped)."""
+    R = se3.euler_zyx_to_rot(x[..., 0], x[..., 1], x[..., 2])
+    return (points - x[..., None, 3:6]) @ R
+
+
 def to_mat(x):
     """Twist 6-vec -> 4x4 matrix in the canonical TZYX convention."""
     return se3.euler6_to_mat(x)
@@ -59,6 +65,11 @@ def to_mat(x):
 
 def from_mat(T):
     return se3.mat_to_euler6(T)
+
+
+def compose_accumulate(T_sum, x):
+    """_Tsum = _Tsum @ TZYX(x)  (LaserOdometry::transformUpdate, :649-653)."""
+    return T_sum @ to_mat(x)
 
 
 def to_relative_motion(x):

@@ -102,3 +102,72 @@ def test_voxel_keeps_the_same_points():
     vt = tvoxel.voxel_downsample(bridge.cloud(cj, "cpu"), 0.5, capacity=256)
     _assert_same_cloud(vt, vj, "voxel")
     assert int(vt.mask.sum()) < int(mask.sum()) // 4   # real merging happened
+
+
+def test_hdl64_capacity_cut_is_shared():
+    # The feature capacities cut a 64-ring sweep down to its lowest rings in
+    # both packages: sharp (256) and flat (1024) fill up, and the raw
+    # less-flat pool is compacted to max_less_flat (8192) in ring-major
+    # order BEFORE the voxel filter (features.py:428-431), so only the
+    # lowest rings reach less_flat.  A JAX-package behaviour the port keeps:
+    # every class holds the same points, bit for bit.
+    world = jsim.make_room_world(size=(30.0, 4.0, 40.0), n_pillars=8, seed=31)
+    p0 = np.eye(4, dtype=np.float32)
+    p0[1, 3] = 1.5
+    p1 = p0.copy()
+    p1[2, 3] += 0.35
+    sj = jsim.scan_sweep(world, jnp.asarray(p0), jnp.asarray(p1), n_rings=64, width=512,
+                         vfov=(-24.9, 2.0))          # the HDL-64E fan
+    assert len(np.unique(np.nonzero(np.asarray(sj.mask))[0])) == 64
+    fj, _ = jfeat._extract_impl(sj, JReg(n_rings=64, max_points_per_ring=512))
+    ft = tfeat.extract_features(bridge.sweep(sj, "cpu"), TReg(n_rings=64, max_points_per_ring=512))
+    rings = {}
+    for name in CLOUDS:
+        cj, ct = getattr(fj, name), getattr(ft, name)
+        for f in ("xyz", "mask", "ring", "rel_time"):
+            np.testing.assert_array_equal(getattr(ct, f).numpy(), np.asarray(getattr(cj, f)),
+                                          err_msg=f"{name}.{f}")
+        rings[name] = sorted(set(ct.ring[ct.mask].tolist()))
+        print(f"{name}: {int(ct.mask.sum())} of {ct.capacity}, rings {rings[name]}")
+    assert int(ft.sharp.mask.sum()) == ft.sharp.capacity == 256
+    assert int(ft.flat.mask.sum()) == ft.flat.capacity == 1024
+    # less_flat keeps a prefix of the rings, far short of the 64
+    lf = rings["less_flat"]
+    assert lf == list(range(len(lf))) and len(lf) < 32
+    assert lf == sorted(set(np.asarray(fj.less_flat.ring)[np.asarray(fj.less_flat.mask)].tolist()))
+
+
+@pytest.mark.parametrize("width", [1024, 2048])
+def test_less_flat_keeps_a_ring_prefix_at_16_rings(width):
+    # the same cut at the VLP-16 fan: max_less_flat takes the raw less-flat
+    # pool ring by ring from ring 0, so the cloud after the voxel filter
+    # holds the lowest rings only, the same rings in both packages.  The
+    # points are the same but for those a differing classify label moves
+    # (an ulp of eig3's arccos / cos decides a threshold, ROADMAP.md Queue
+    # 3: one label at 16 x 2048 here, none at 16 x 1024)
+    world = jsim.make_room_world(size=(30.0, 4.0, 40.0), n_pillars=8, seed=31)
+    p0 = np.eye(4, dtype=np.float32)
+    p0[1, 3] = 1.5
+    p1 = p0.copy()
+    p1[2, 3] += 0.35
+    sj = jsim.scan_sweep(world, jnp.asarray(p0), jnp.asarray(p1), n_rings=16, width=width)
+    st = bridge.sweep(sj, "cpu")
+    cj, ct = JReg(n_rings=16, max_points_per_ring=width), TReg(n_rings=16, max_points_per_ring=width)
+    fj, _ = jfeat._extract_impl(sj, cj)
+    ft = tfeat.extract_features(st, ct)
+    n_label = int((tfeat.classify(st.xyz, st.mask, ct).numpy()
+                   != np.asarray(jfeat.classify(sj.xyz, sj.mask, cj))).sum())
+    assert n_label <= 1
+    lj, lt = fj.less_flat, ft.less_flat
+    pts = lambda c, m: {tuple(x) for x in np.asarray(c.xyz)[np.asarray(m)].tolist()}
+    differ = pts(lj, lj.mask) ^ pts(lt, lt.mask)
+    if n_label == 0:
+        for f in ("xyz", "mask", "ring", "rel_time"):
+            np.testing.assert_array_equal(getattr(lt, f).numpy(), np.asarray(getattr(lj, f)),
+                                          err_msg=f)
+    assert len(differ) <= 4 * n_label
+    rings = sorted(set(lt.ring[lt.mask].tolist()))
+    print(f"16 x {width}: less_flat {int(lt.mask.sum())} points, rings {rings}; labels "
+          f"differing {n_label}, points differing {len(differ)}")
+    assert rings == sorted(set(np.asarray(lj.ring)[np.asarray(lj.mask)].tolist()))
+    assert rings == list(range(len(rings))) and len(rings) < 16

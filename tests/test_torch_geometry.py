@@ -98,3 +98,59 @@ def test_compact_is_a_stable_front_pack():
     tc = tcloud.compact(bridge.cloud(jcloud.make(xyz, mask, ring, rel), "cpu"), 160)
     for f in ("xyz", "mask", "ring", "rel_time"):
         np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)))
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_map_to_point_inverts_point_to_map_like_jax(seed):
+    x, pts, _ = _inputs(seed)
+    tx, tp = torch.from_numpy(x), torch.from_numpy(pts)
+    got = ttwist.map_to_point(tx, tp)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jtwist.map_to_point(jnp.asarray(x), jnp.asarray(pts))),
+                               atol=ATOL)
+    # the round trip through point_to_map gives the points back
+    np.testing.assert_allclose(ttwist.map_to_point(tx, ttwist.point_to_map(tx, tp)).numpy(), pts,
+                               atol=1e-4)
+
+
+def test_compose_helpers_match():
+    # compose_accumulate, compose, identity_mat
+    x, _, _ = _inputs(8)
+    T = ttwist.to_mat(torch.from_numpy(x))
+    jT = jnp.asarray(T.numpy())
+    np.testing.assert_allclose(ttwist.compose_accumulate(T, torch.from_numpy(x[::-1].copy())).numpy(),
+                               np.asarray(jtwist.compose_accumulate(jT, jnp.asarray(x[::-1]))),
+                               atol=ATOL)
+    np.testing.assert_allclose(tse3.compose(T[0], T[1]).numpy(),
+                               np.asarray(jse3.compose(jT[0], jT[1])), atol=ATOL)
+    eye = tse3.identity_mat(device="cpu")
+    assert eye.dtype == torch.float32 and eye.device.type == "cpu"
+    np.testing.assert_array_equal(eye.numpy(), np.asarray(jse3.identity_mat()))
+    np.testing.assert_array_equal(tse3.identity_mat(torch.float64, "cpu").numpy(), np.eye(4))
+
+
+def test_quat_from_axis_angle_matches():
+    rng = np.random.RandomState(9)
+    axis = rng.randn(6, 3).astype(np.float32)
+    axis[1] *= 1e-3                  # any length: the axis is normalised
+    axis[2] = 0.0                    # a zero axis: the 1e-12 floor
+    angle = rng.uniform(-np.pi, np.pi, 6).astype(np.float32)
+    got = tse3.quat_from_axis_angle(torch.from_numpy(axis), torch.from_numpy(angle))
+    want = np.asarray(jse3.quat_from_axis_angle(jnp.asarray(axis), jnp.asarray(angle)))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    # a quaternion of unit length where the axis is not zero, and the rotation of its angle
+    np.testing.assert_allclose(torch.linalg.vector_norm(got[[0, 1, 3, 4, 5]], dim=-1).numpy(), 1.0,
+                               atol=1e-6)
+
+
+def test_cloud_count_and_masked_xyz_match():
+    rng = np.random.RandomState(10)
+    xyz = rng.uniform(-5, 5, (3, 40, 3)).astype(np.float32)
+    mask = rng.rand(3, 40) > 0.5
+    jc, tc = jcloud.make(jnp.asarray(xyz), jnp.asarray(mask)), tcloud.make(
+        torch.from_numpy(xyz), torch.from_numpy(mask))
+    assert tc.count().dtype == torch.int32
+    np.testing.assert_array_equal(tc.count().numpy(), np.asarray(jc.count()))
+    for fill in ({}, {"fill": -7.5}):
+        np.testing.assert_array_equal(tc.masked_xyz(**fill).numpy(),
+                                      np.asarray(jc.masked_xyz(**fill)))

@@ -1,8 +1,8 @@
 """The port imports neither JAX nor the JAX package, and keeps TF32 off.
 
 The machine that holds the card has no JAX, so every module of
-``cooper_mapper_torch`` and ``chip_smoke.py`` must import with ``jax`` and
-``cooper_mapper_tpu`` made unimportable.
+``cooper_mapper_torch``, ``chip_smoke.py`` and ``diagnose_offline_divergence.py``
+must import with ``jax`` and ``cooper_mapper_tpu`` made unimportable.
 """
 
 import os
@@ -27,6 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(cooper_mapper_torch.__path__, "co
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import diagnose_offline_divergence
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "cooper_mapper_tpu")))
 assert not [m for m in leaked if sys.modules[m] is not None], leaked
 print(len(names))
@@ -80,7 +81,11 @@ def test_module_list_covers_the_slice():
                 "maps.dynamic_map", "io.feature_extracter", "io.rosbag", "io.native_binner",
                 "io.native_pager", "fusion.utm", "fusion.fpd_receiver", "utils.frames",
                 # the parallel layer
-                "parallel.mesh", "parallel.distributed", "parallel.batch", "maps.sharded_map"):
+                "parallel.mesh", "parallel.distributed", "parallel.batch", "maps.sharded_map",
+                # the entry scripts
+                "examples.run_offline", "examples.demo_mapping", "examples.demo_localization",
+                "examples.demo_graph_slam", "examples.demo_wander",
+                "examples.bayes_filter_tutorial"):
         assert f"cooper_mapper_torch.{mod}" in names
 
 

@@ -52,7 +52,8 @@ def raw_points():
     return pts.astype(np.float32), sw
 
 
-@pytest.mark.parametrize("mapper,n_rings", [("VLP16", 16), ("HDL32", 32), ("PANDAR40", 40)])
+@pytest.mark.parametrize("mapper,n_rings", [("VLP16", 16), ("HDL32", 32), ("PANDAR40", 40),
+                                            ("HDL64E", 64)])
 def test_organize_unordered_equals_jax(raw_points, mapper, n_rings):
     pts, _ = raw_points
     jcfg, tcfg = JReg(n_rings=n_rings, max_points_per_ring=600), \

@@ -147,6 +147,70 @@ def test_plane_fit_and_surf_coefficients_match_jax():
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
 
 
+def test_array_line_fit_matches_jax():
+    # fit_line on [..., K, 3]: eigh in both packages; the principal
+    # direction's sign is each eigensolver's, so {A, B} is compared as a pair
+    pts, _, mask = _neighbourhoods(2)
+    collinear = np.linspace(0, 1, 5, dtype=np.float32)[:, None] * np.float32([1, 2, 3]) \
+        + np.float32([0.5, 0, -1])
+    pts = np.concatenate([pts, collinear[None]])
+    mask = np.concatenate([mask, [True]])
+    jA, jB, jv = jres.fit_line(jnp.asarray(pts), jnp.asarray(mask))
+    tA, tB, tv = tres.fit_line(_t(pts), _t(mask))
+    lam = _cov_eigs(pts)
+    near = np.abs(lam[:, 2] - 5.0 * lam[:, 1]) <= NEAR * lam[:, 2]
+    _valid_equal(tv, jv, near, "line valid")
+    assert bool(tv[-1]) and not tv.numpy()[:-1][~mask[:-1]].any()
+    both = np.asarray(jv) & tv.numpy()
+    assert 0.2 < both.mean() < 0.8
+    same = np.maximum(np.abs(tA.numpy() - np.asarray(jA)), np.abs(tB.numpy() - np.asarray(jB)))
+    swap = np.maximum(np.abs(tA.numpy() - np.asarray(jB)), np.abs(tB.numpy() - np.asarray(jA)))
+    np.testing.assert_array_less(np.minimum(same, swap).max(-1)[both], 1e-4)
+    # the collinear set's line passes through its points
+    d, _ = tres.line_point_distance(tA[-1], tB[-1], _t(collinear[2]))
+    assert float(d) < 1e-5
+
+
+def test_array_plane_fit_matches_jax():
+    # fit_plane on [..., K, 3]: the inlier and collinear gates and the mask
+    # on noisy lines, planes and blobs 10 m out
+    pts, _, mask = _neighbourhoods(3)
+    jp, jv = jres.fit_plane(jnp.asarray(pts), jnp.asarray(mask), 0.2)
+    tp, tv = tres.fit_plane(_t(pts), _t(mask), 0.2)
+    lam = _cov_eigs(pts)
+    near = np.abs(lam[:, 1] - 0.05 * lam[:, 2]) <= NEAR * lam[:, 2]
+    p64 = np.asarray(jp, np.float64)
+    dist = np.abs(np.einsum("nki,ni->nk", pts.astype(np.float64), p64[:, :3]) + p64[:, 3:])
+    near |= (np.abs(dist - 0.2) <= NEAR * 0.2).any(-1)
+    _valid_equal(tv, jv, near, "plane valid")
+    assert not tv.numpy()[~mask].any()
+    assert 0.2 < (np.asarray(jv) & tv.numpy()).mean() < 0.8
+    # the parameters on clean planes 3 m out (the JAX package's
+    # test_fit_plane_planes_params_on_clean_planes): n . p = -1 is solved
+    # uncentred in f32, so the two LU solves part by up to ~1e-3 in d
+    rng = np.random.RandomState(5)
+    base = rng.randn(256, 1, 3) * 3
+    pn = rng.randn(256, 1, 3)
+    pn /= np.linalg.norm(pn, axis=-1, keepdims=True)
+    u = np.cross(pn, np.array([1.0, 0.3, -0.5]))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    v = np.cross(pn, u)
+    clean = (base + rng.randn(256, 5, 1) * u + rng.randn(256, 5, 1) * v
+             + 0.01 * rng.randn(256, 5, 3)).astype(np.float32)
+    jp, jv = jres.fit_plane(jnp.asarray(clean))
+    tp, tv = tres.fit_plane(_t(clean))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert tv.numpy().mean() > 0.8
+    np.testing.assert_allclose(tp.numpy()[tv.numpy()], np.asarray(jp)[tv.numpy()], atol=2e-3)
+    # exactly collinear points: the planar-ratio gate rejects them in both
+    # (without it the plane through a line is underdetermined, and the two
+    # LU solves pick different ones)
+    line = (np.linspace(0, 1, 5)[:, None] * np.array([1.0, 2.0, 3.0]) + [0.5, 0.0, -1.0])
+    line = line[None].astype(np.float32)
+    assert not bool(tres.fit_plane(_t(line))[1][0])
+    assert not bool(jres.fit_plane(jnp.asarray(line))[1][0])
+
+
 def test_reference_jacobian_rows_match_jax_and_autograd():
     rng = np.random.RandomState(2)
     x = np.array([[0.05, -0.1, 0.2, 1.0, -2.0, 0.5], [0.3, 0.02, -0.25, 0.0, 1.0, 3.0]],
