@@ -72,7 +72,8 @@ and the four demos at their defaults.
 Phases, each announced on its own line as it starts:
 
 1. the card's name and power limit;
-2. the kernels' build (one nvcc call), with its seconds and ptxas report;
+2. the kernels' build (one nvcc process per source, started together, then
+   one link), with its seconds and ptxas report;
 3. every race kernel against its plain PyTorch version at the odometry
    path's shapes: indices equal for every query inside the 25 m^2 gate (a
    true tie, distances within 1e-5 relative, is counted and must stay under
@@ -334,6 +335,24 @@ Phases, each announced on its own line as it starts:
    ``demo_mapping``, ``demo_localization``, ``demo_graph_slam`` and
    ``demo_wander`` main() on the card at their defaults: every pose of every
    pipeline finite; their ATEs printed (the JAX demos gate none);
+41. (run after 39, before 40's summary) the port's reach against the JAX
+   package's: the k-NN bit for bit with ``knn_plain`` at every k of 1..32,
+   33, 64, 100 and 257 (the register lists up to 32, the select route
+   above) on the scan-to-map surf search (64 x 2048 vs 5888), a per-problem
+   map, the B = 1 split shape (mapping sweep 4's surf search, 1 x 8192 vs
+   65536) and a tie-heavy integer grid, with device ms, plain, library and
+   bound at k = 8, 16, 32, 33, 64, 100 and 257 on the first and third;
+   every race kernel (nn1, nn1_masked "adj" and "same", bc_races,
+   fused_races with and without race B) and both k-NN routes (k = 5, 40)
+   at B = 65,537 against a shared and a per-problem reference, bit for bit,
+   with their ms per call; then, every launch counter at 0 first, the main
+   paths at the new reach: ``batch_odometry_solve`` at B = 65,537 on the
+   bench pair (rows 0..511 within 1e-4 of the B = 512 solve, its solves/s),
+   ``batch_scan_match`` at ``ScanMatchConfig(knn=8)``, B = 64 (four lanes
+   within 2e-3 of the CPU) and ``classify_map_points`` at k = 8 and 40 on
+   tests/test_io.py's scene (labels as the CPU's but within 1e-4 of a
+   threshold; the test's gates at k = 8): nn1, nn1_masked, bc_races, the
+   k-NN and its select route each launched;
 40. a ``kernels`` JSON line (the nn1, nn1_masked, bc_races and knn rows
    carry their times at the single-stream shapes of phases 8 and 10 under
    ``single_stream``, with the split route's launches in the phase 9 drive;
@@ -350,7 +369,11 @@ Phases, each announced on its own line as it starts:
    34-36 (both ranks of 36 added up) and its ``scripts`` those of phases
    37-39's drives in this process; nn1's ICP shape and the k-NN's
    fine-match shape of phase 21 and its converter shape of phase 31 are
-   under their ``more_shapes``), then the result line.
+   under their ``more_shapes``; every row's ``coverage`` holds its launches
+   in phase 41's main paths and its ``wide_batch`` its B = 65,537 times;
+   the knn row's ``every_k`` its times at k = 8, 16, 32; a ``knn_select``
+   row, the select route, at k = 33 with 64, 100, 257 and the split shape
+   under ``more_shapes``), then the result line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -418,12 +441,14 @@ def log(msg):
 
 
 def kernels():
-    """Every kernel wrapper of the port, each with its launch counter:
-    nn1, nn1_masked, bc_races, fused_races, merge_min (counted where the
-    split races launch it), knn."""
+    """The kernel wrappers of the port's paths at their configured k, each
+    with its launch counter: nn1, nn1_masked, bc_races, fused_races,
+    merge_min (counted where the split races launch it), knn (the register
+    lists).  The k-NN's select route, taken only at k > 32, is counted apart
+    (``knn.knn_select``) and read in phase 41, which drives it."""
     from cooper_mapper_torch.ops import knn, races
 
-    return races.KERNELS + (races.merge_min,) + knn.KERNELS
+    return races.KERNELS + (races.merge_min, knn.knn)
 
 
 def reset_launches():
@@ -460,7 +485,7 @@ def card_line():
 def build_phase():
     from cooper_mapper_torch import build
 
-    log("[2] building kernels (one nvcc call)")
+    log("[2] building kernels (nvcc, one process per source, then one link)")
     t0 = time.perf_counter()
     build.library()
     wall = time.perf_counter() - t0
@@ -907,9 +932,11 @@ KNN_TIMES = ("CUDA events; wrapper calls; plain = knn_plain on the card; "
              "library = torch.cdist(...).square_().masked_fill_(...).topk(5)")
 
 
-def knn_times(tag, q, ref, err):
+def knn_times(tag, q, ref, err, k=KNN_K, reps=20, device_names=None):
     """The k-NN kernel's, plain version's and library chain's ms on a shared
-    reference, beside the bound; logged and returned as a kernels-line row."""
+    reference at k, beside the bound; logged and returned as a kernels-line
+    row.  With ``device_names``, also the device ms per call of the kernels
+    so named (``device_ms``)."""
     from cooper_mapper_torch.ops import knn, races
 
     B, Q, _ = q.shape
@@ -917,19 +944,24 @@ def knn_times(tag, q, ref, err):
     rexp = ref.xyz[None].expand(B, M, 3)
     inval = ~ref.mask
     big = torch.tensor(races.BIG, device=q.device)
-    ms = time_ms(lambda: knn.knn(q, ref.xyz, ref.mask, KNN_K), reps=20)
-    plain_ms = time_ms(lambda: knn.knn_plain(q, ref.xyz, ref.mask, KNN_K), reps=3, warmup=1)
+    call = lambda: knn.knn(q, ref.xyz, ref.mask, k)
+    ms = time_ms(call, reps=reps)
+    plain_ms = time_ms(lambda: knn.knn_plain(q, ref.xyz, ref.mask, k), reps=3, warmup=1)
     library_ms = time_ms(lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big)
-                         .topk(KNN_K, largest=False), reps=3, warmup=1)
+                         .topk(k, largest=False), reps=3, warmup=1)
     slots, valid, per_query = ref_counts(B, ref.mask)
     pairs = Q * per_query
     t_ops = pairs * OPS_PER_PAIR["knn"] / FP32_PEAK_OPS * 1e3
-    t_bytes = (B * Q * 12 + slots + valid * 12 + B * Q * KNN_K * 8) / HBM_BYTES_PER_S * 1e3
-    row = dict(shape=f"{B}x{Q} vs {M}", valid_ref=valid, pairs=pairs, err=err, ms=ms,
+    t_bytes = (B * Q * 12 + slots + valid * 12 + B * Q * k * 8) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=f"{B}x{Q} vs {M}", k=k, valid_ref=valid, pairs=pairs, err=err, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"    knn {tag} [{B}x{Q} vs {M}, {valid} valid, {pairs:.3g} valid pairs]: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+    dev = ""
+    if device_names:
+        row["device_ms"], _, _, _ = device_ms(call, device_names, reps=reps)
+        dev = f", device {row['device_ms']:.4f} ms"
+    log(f"    knn {tag} k={k} [{B}x{Q} vs {M}, {valid} valid, {pairs:.3g} valid pairs]: kernel "
+        f"{ms:.4f} ms{dev}, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
@@ -1398,14 +1430,16 @@ def mapping_knn_inputs(cfg, sweeps, device):
             for tag, frame, ref in (("surf", surf_ds, ref_s), ("corner", corner_ds, ref_c))}
 
 
-def mapping_knn_phase(cfg, sweeps, device):
+def mapping_knn_phase(cfg, sweeps, device, keep=None):
     """The k-NN kernel against knn_plain, bit for bit, on a mapping sweep's
-    own inputs (``mapping_knn_inputs``), where it splits M across blocks;
-    its times there, as kernels-line rows."""
+    own inputs (``mapping_knn_inputs``, also left in ``keep``), where it
+    splits M across blocks; its times there, as kernels-line rows."""
     from cooper_mapper_torch.ops import knn, races
 
     log("[10] k-NN kernel vs knn_plain at the mapping sweep's shapes (sweep 4's inputs)")
     inputs = mapping_knn_inputs(cfg, sweeps, device)
+    if keep is not None:
+        keep.update(inputs)
     n_sm = races.sm_count(device)
     errs = {}
     for tag, (q, frame, ref) in inputs.items():
@@ -2156,6 +2190,10 @@ def icp_phase(pipe, device):
     log(f"    times ({RACE_TIMES})")
     nn1_row = dict(race_times("nn1", q, ref_surf, float((dk - dp).abs().max())), plan=[S, L],
                    merges=merges, where="ICP of the loop closure")
+    nn1_row["device_ms"] = device_ms(lambda: races.nn1(q, ref_surf.xyz, ref_surf.mask),
+                                     ("nn1_kernel", "merge_min"))[0]
+    log(f"    nn1 at the ICP shape: device {nn1_row['device_ms']:.4f} ms per call (the kernel "
+        "and its merge)")
     leaf = ScanMatchConfig().local_surf_leaf
     surf_ds, ref_ds = voxel_downsample(kf.surf, leaf), voxel_downsample(ref_surf, leaf)
     qk = se3.apply(T.to(device), surf_ds.xyz)[None].contiguous()
@@ -2169,7 +2207,8 @@ def icp_phase(pipe, device):
         f"valid): split S={Sk} chunks of L={Lk}; bit-identical to knn_plain {same}")
     if not same:
         fail("knn at the fine match's shape disagrees with knn_plain")
-    knn_row = dict(knn_times("loop fine match", qk, ref_ds, float((dk - dp).abs().max())),
+    knn_row = dict(knn_times("loop fine match", qk, ref_ds, float((dk - dp).abs().max()),
+                             device_names=("knn_kernel", "merge_first_k")),
                    plan=[Sk, Lk], where="the loop closure's fine match")
     return dict(icp_dT=dT, nn1=nn1_row, knn=knn_row)
 
@@ -4132,6 +4171,241 @@ def scripts_phase(root, tally, device):
     return out
 
 
+# Phase 41: the port's reach against the JAX package's.  The k-NN at every k
+# the TPU kernel takes (its k is static, any 1 <= k <= M): the register
+# lists up to 32, the select route above; every search kernel at more than
+# 65,535 problems (the JAX package's vmap runs any batch).
+COVER_KS = tuple(range(1, 33)) + (33, 64, 100, 257)
+COVER_TIMED_KS = (8, 16, 32, 33, 64, 100, 257)
+WIDE_B = 65537                      # one problem past CUDA's grid-y cap
+WIDE_Q, WIDE_M, WIDE_M_PER = 128, 512, 64
+WIDE_KNN_KS = (5, 40)               # a register-list k and a select-route k
+# batch_odometry_solve at WIDE_B: its first BATCH rows against the BATCH
+# solve of the same rows.  The lanes are independent, but the eager GN's
+# reductions may take other reduction plans at another batch size: held to
+# tests/test_sharded_map.py's sharded-vs-unsharded odometry tolerance.
+WIDE_ODO_TOL = 1e-4
+CLASSIFY_KS = (8, 40)               # tests/test_io.py's k; a select-route k
+LABEL_MARGIN = 1e-4                 # tests/test_torch_feature_extracter.py's MARGIN
+
+
+def tie_heavy(device, B=2, Q=300, M=1300, seed=5):
+    """Integer-grid points, seven values per axis: most distances repeat."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randint(-3, 4, (B, Q, 3)).astype(np.float32)).to(device)
+    r = torch.from_numpy(rng.randint(-3, 4, (M, 3)).astype(np.float32)).to(device)
+    return q, r, torch.from_numpy(rng.rand(M) > 0.1).to(device)
+
+
+def every_k_check(cases):
+    """``knn.knn`` against ``knn_plain`` at every k of COVER_KS on each case,
+    bit for bit (indices and distances); every route."""
+    from cooper_mapper_torch.ops import knn
+
+    for label, q, r, m in cases:
+        bad = []
+        for k in COVER_KS:
+            if k > r.shape[-2]:
+                continue
+            got = knn.knn(q, r, m, k)
+            want = knn.knn_plain(q, r, m, k)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                bad.append(k)
+        torch.cuda.synchronize()
+        log(f"    knn {label} {tuple(q.shape)} vs {tuple(r.shape)}: k = 1..32, 33, 64, 100, "
+            f"257 against knn_plain, bit for bit: {'all equal' if not bad else bad}")
+        if bad:
+            fail(f"knn {label} disagrees with knn_plain at k = {bad}")
+
+
+def wide_batch_check(device):
+    """Every race kernel and both k-NN routes at B = WIDE_B problems, a
+    shared reference and a per-problem one, bit for bit with their plain
+    versions; the wrapper's ms per call.  Returns {kernel: row}."""
+    from cooper_mapper_torch.ops import knn, neighbors, races
+
+    rng = np.random.RandomState(41)
+    B, Q = WIDE_B, WIDE_Q
+    q = torch.from_numpy(rng.uniform(-8, 8, (B, Q, 3)).astype(np.float32)).to(device)
+    refs = {}
+    for label, lead, M in (("shared", (), WIDE_M), ("per-problem", (B,), WIDE_M_PER)):
+        xyz = torch.from_numpy(rng.uniform(-8, 8, lead + (M, 3)).astype(np.float32)).to(device)
+        ring = torch.from_numpy(rng.randint(0, 16, lead + (M,)).astype(np.int32)).to(device)
+        mask = torch.from_numpy(rng.rand(*(lead + (M,))) > 0.1).to(device)
+        refs[label] = (xyz, ring, mask)
+    rows = {}
+    for label, (xyz, ring, mask) in refs.items():
+        shared = xyz.dim() == 2
+        ia, _ = races.nn1_plain(q, xyz, mask)
+        ring_a = neighbors.take_ref(ring, ia, shared)
+        calls = {
+            "nn1": (lambda: races.nn1(q, xyz, mask), lambda: races.nn1_plain(q, xyz, mask)),
+            **{f"nn1_masked {mode}": (
+                lambda mode=mode: races.nn1_masked(q, ring_a, ia, xyz, ring, mask, mode),
+                lambda mode=mode: races.nn1_masked_plain(q, ring_a, ia, xyz, ring, mask, mode))
+               for mode in ("adj", "same")},
+            "bc_races": (lambda: races.bc_races(q, ring_a, ia, xyz, ring, mask),
+                         lambda: races.bc_races_plain(q, ring_a, ia, xyz, ring, mask)),
+            **{f"fused_races {'surf' if ws else 'corner'}": (
+                lambda ws=ws: races.fused_races(q, xyz, ring, mask, ws),
+                lambda ws=ws: races.fused_races_plain(q, xyz, ring, mask, ws))
+               for ws in (True, False)},
+            **{f"knn k={k}": (lambda k=k: knn.knn(q, xyz, mask, k),
+                              lambda k=k: knn.knn_plain(q, xyz, mask, k))
+               for k in WIDE_KNN_KS},
+        }
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms = time_ms(kern, reps=3, warmup=1)
+            plain_ms = time_ms(plain, reps=1, warmup=0)
+            log(f"    {name} at B={B}, {Q} queries vs {label} M={xyz.shape[-2]}: "
+                f"{'equal' if same else 'DIFFERENT'}; kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.2f} ms per call")
+            if not same:
+                fail(f"{name} at B={B} ({label} reference) disagrees with its plain version")
+            rows.setdefault(name, []).append(dict(shape=f"{B}x{Q} vs {label} {xyz.shape[-2]}",
+                                                  ms=ms, plain_ms=plain_ms))
+    return rows
+
+
+def wide_odometry(bench, device):
+    """batch_odometry_solve at B = WIDE_B on the bench pair: its first
+    BATCH rows against the BATCH solve of the same rows; solves/s."""
+    from cooper_mapper_torch.config import OdometryConfig
+    from cooper_mapper_torch.ops import odometry
+
+    sharp1, flat1, ref_c, ref_s = bench
+    cfg = OdometryConfig()
+    x0 = torch.from_numpy((0.02 * np.random.RandomState(0).randn(WIDE_B, 6))
+                          .astype(np.float32)).to(device)
+    sharp, flat = tile(sharp1, WIDE_B), tile(flat1, WIDE_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, st = odometry.batch_odometry_solve(sharp, flat, ref_c, ref_s, x0, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del sharp, flat, st
+    x_small, _ = odometry.batch_odometry_solve(tile(sharp1, BATCH), tile(flat1, BATCH), ref_c,
+                                               ref_s, x0[:BATCH], cfg)
+    dx = float((x[:BATCH] - x_small).abs().max())
+    finite = bool(torch.isfinite(x).all())
+    log(f"    batch_odometry_solve at B={WIDE_B}: {seconds:.2f} s, {WIDE_B / seconds:.1f} "
+        f"solves/s; rows 0..{BATCH - 1} against the B={BATCH} solve: max |dx| {dx:.3g} "
+        f"(tolerance {WIDE_ODO_TOL}); all lanes finite {finite}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (finite and dx <= WIDE_ODO_TOL):
+        fail(f"batch_odometry_solve at B={WIDE_B} disagrees with the B={BATCH} solve")
+    return dict(seconds=seconds, sps=WIDE_B / seconds, dx=dx)
+
+
+def knn8_scan_match(scan, device):
+    """batch_scan_match at ScanMatchConfig(knn=8), B = SM_BATCH on the
+    scan-to-map problem; lanes 0..CPU_LANES-1 against the CPU."""
+    from cooper_mapper_torch.config import ScanMatchConfig
+    from cooper_mapper_torch.ops import scan_match as sm
+
+    corner, surf, ref_c, ref_s, x0 = scan
+    cfg = ScanMatchConfig(knn=8)
+    corner_b, surf_b = tile(corner, SM_BATCH), tile(surf, SM_BATCH)
+    res = sm.batch_scan_match(corner_b, surf_b, ref_c, ref_s, x0, cfg)
+    res_cpu = sm.batch_scan_match(to_cpu(corner_b, CPU_LANES), to_cpu(surf_b, CPU_LANES),
+                                  to_cpu(ref_c), to_cpu(ref_s), x0[:CPU_LANES].cpu(), cfg)
+    dx = float((res.x[:CPU_LANES].cpu() - res_cpu.x).abs().max())
+    same_ok = res.success[:CPU_LANES].cpu().tolist() == res_cpu.success.tolist()
+    log(f"    batch_scan_match knn=8 at B={SM_BATCH}: success {int(res.success.sum())} of "
+        f"{SM_BATCH}, lanes 0..{CPU_LANES - 1} vs the CPU max |dx| {dx:.3g} (tolerance "
+        f"{CPU_TOL}), success the same {same_ok}")
+    if not (torch.isfinite(res.x).all() and dx <= CPU_TOL and same_ok):
+        fail("batch_scan_match at knn=8: card and CPU disagree")
+    return dx
+
+
+def classify_scene():
+    """tests/test_io.py::TestFeatureExtracter's cloud: a plane patch and a line."""
+    rng = np.random.RandomState(0)
+    uv = rng.uniform(-2, 2, (400, 2))
+    plane = np.stack([uv[:, 0], np.zeros(400), uv[:, 1]], -1)
+    t = rng.uniform(-2, 2, (100, 1))
+    line = np.concatenate([t * 0 + 5.0, t * 3, t * 0], -1)
+    return np.concatenate([plane, line]).astype(np.float32)
+
+
+def classify_check(device):
+    """classify_map_points on the card against the CPU at CLASSIFY_KS:
+    labels equal but where the CPU's eigenvalues lie within LABEL_MARGIN of
+    a threshold; the test's own gates at k = 8."""
+    from cooper_mapper_torch.io import feature_extracter as fe
+
+    xyz = classify_scene()
+    pts = torch.from_numpy(xyz)
+    out = {}
+    for k in CLASSIFY_KS:
+        card = fe.classify_map_points(xyz, k=k, device=device)
+        cpu = fe.classify_map_points(xyz, k=k, device="cpu")
+        differ = (card[0] != cpu[0]) | (card[1] != cpu[1])
+        margin = fe.threshold_margin(fe.eigenvalues(pts, fe.neighbours(pts, k))).numpy()
+        ok = bool(np.all(margin[differ] < LABEL_MARGIN))
+        log(f"    classify_map_points k={k}: surf {int(card[0].sum())}, corner "
+            f"{int(card[1].sum())} of {len(xyz)}; labels differing from the CPU "
+            f"{int(differ.sum())} (all within {LABEL_MARGIN} of a threshold: {ok})")
+        if not ok:
+            fail(f"classify_map_points(k={k}) on the card disagrees with the CPU")
+        if k == 8 and not (card[0][:400].mean() > 0.8 and card[1][400:].mean() > 0.6
+                           and card[1][:400].mean() < 0.2):
+            fail("classify_map_points(k=8) on the card misses tests/test_io.py's gates")
+        out[k] = int(differ.sum())
+    return out
+
+
+def coverage_phase(scan, split_inputs, bench, device):
+    """[41] The port's reach against the JAX package's: the k-NN at every k
+    on both routes, bit for bit, and its times; every search kernel at
+    B = WIDE_B, bit for bit; then the main paths there, counted:
+    batch_odometry_solve at B = WIDE_B, batch_scan_match at knn=8 and
+    classify_map_points at k = 8 and 40.  Returns the phase's numbers."""
+    from cooper_mapper_torch.ops import knn
+    from cooper_mapper_torch.utils import twist
+
+    t_start = time.perf_counter()
+    corner, surf, map_c, map_s, x0_sm = scan
+    qs = twist.point_to_map(x0_sm, surf.xyz).contiguous()
+    q1, _, ref1 = split_inputs["surf"]
+    nb = 8
+    ref_sb = tile(map_s, nb)
+    log("[41] coverage: the k-NN at every k (register lists k <= 32, the select route "
+        "above), every search kernel at B = 65,537, and their main paths")
+    every_k_check([("scan-to-map surf", qs, map_s.xyz, map_s.mask),
+                   ("per-problem map", qs[:nb].contiguous(), ref_sb.xyz, ref_sb.mask),
+                   ("split B=1 (mapping sweep 4's surf)", q1, ref1.xyz, ref1.mask),
+                   ("tie-heavy integer grid", *tie_heavy(device))])
+    log(f"    times at k = {COVER_TIMED_KS} ({KNN_TIMES}, topk(k))")
+    names = ("knn_kernel", "merge_first_k", "knn_select_kernel")
+    timed = {tag: [knn_times(tag, q, ref, 0.0, k=k, reps=10, device_names=names)
+                   for k in COVER_TIMED_KS]
+             for tag, q, ref in (("scan-to-map surf", qs, map_s), ("split B=1", q1, ref1))}
+    wide = wide_batch_check(device)
+
+    log("    main paths at the new reach, every launch counter at 0 first")
+    reset_launches()
+    knn.knn_select.launches = 0
+    odo = wide_odometry(bench, device)
+    sm_dx = knn8_scan_match(scan, device)
+    labels = classify_check(device)
+    torch.cuda.synchronize()
+    launches = dict(read_launches(), knn_select=knn.knn_select.launches)
+    log(f"    launches in phase 41's main paths: {launches}")
+    for k in ("nn1", "nn1_masked", "bc_races", "knn", "knn_select"):
+        if launches[k] <= 0:
+            fail(f"phase 41's main paths launched no {k}")
+    seconds = time.perf_counter() - t_start
+    log(f"    phase 41 {seconds:.1f} s")
+    return dict(timed=timed, wide=wide, odo=odo, sm_dx=sm_dx, labels=labels,
+                launches=launches, merges=read_merges(), seconds=seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (this script runs on the card only)")
@@ -4178,11 +4452,13 @@ def main():
     merge_rows = [v for k, v in fused_rows.items() if k.startswith("merge ")]
     kern["merge_min"] = merge_rows[0]
     # the B = 1 shapes of the split route, where the kernels split M
+    split_knn = {}
     single_stream = {"nn1": [fused_rows["nn1 single-stream surf"],
                              fused_rows["nn1 single-stream corner"]],
                      "nn1_masked": [fused_rows["nn1_masked single-stream"]],
                      "bc_races": [fused_rows["bc_races single-stream"]],
-                     "knn": list(mapping_knn_phase(ss_cfg, sweeps, device).values())}
+                     "knn": list(mapping_knn_phase(ss_cfg, sweeps, device,
+                                                   keep=split_knn).values())}
     # the main path's other shapes of a kernel (nn1: the corner search; the
     # fused kernel: the drive's corner search and the bench's two; merge_min:
     # the other chunkings)
@@ -4250,6 +4526,8 @@ def main():
         finally:
             stop_children(children.values())
     scripts_s = time.perf_counter() - t37
+    cover = coverage_phase((corner, surf, map_c, map_s, x0_sm), split_knn,
+                           (sharp1, flat1, ref_c, ref_s), device)
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -4258,7 +4536,7 @@ def main():
                # no TPU counterpart: the merge of the split searches of nn1.py:69, :173, :301
                "merge_min": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "split.cuh"),
                "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
-    extra = ("valid_ref", "device_ms", "plan", "split_route_device_ms", "merges", "where")
+    extra = ("k", "valid_ref", "device_ms", "plan", "split_route_device_ms", "merges", "where")
     # the loop closure's shapes (phase 21): nn1 in ICP, the k-NN in the fine match
     more_shapes["nn1"].append(icp_run["nn1"])
     more_shapes["knn"] = [icp_run["knn"], convert["row"]]
@@ -4295,6 +4573,25 @@ def main():
             row["single_stream"] = [dict(fields(v), launches=ss_launches[row["name"]],
                                          merges=ss_launches["merges"][row["name"]])
                                     for v in single_stream[row["name"]]]
+    # phase 41: the k-NN at every k and every kernel at B = WIDE_B; the
+    # select route's own row (its launches are phase 41's main paths')
+    wide_of = lambda name: [dict(v, kernel=k) for k, rs in cover["wide"].items()
+                            for v in rs if k.split(" ")[0] == name and k != "knn k=40"]
+    for row in rows:
+        row["coverage"] = dict(launches=cover["launches"][row["name"]],
+                               merges=cover["merges"].get(row["name"], 0))
+        row["wide_batch"] = wide_of(row["name"])
+        if row["name"] == "knn":
+            row["every_k"] = [fields(v) for rs in cover["timed"].values() for v in rs
+                              if v["k"] <= 32]
+    select = [fields(v) for rs in cover["timed"].values() for v in rs if v["k"] > 32]
+    rows.append({"name": "knn_select", "route": "cuda",
+                 "source": "cooper_mapper_torch/csrc/knn.cu",
+                 "replaces": "cooper_mapper_tpu/ops/pallas/knn_stream.py:187",
+                 "launches": cover["launches"]["knn_select"], **select[0],
+                 "more_shapes": select[1:],
+                 "coverage": dict(launches=cover["launches"]["knn_select"], merges=0),
+                 "wide_batch": cover["wide"]["knn k=40"]})
     pg_stat = lambda r: (f"{r['solver']} n={r['n']} {r['iters_per_s'][0]:.2f} / "
                          f"{r['iters_per_s'][1]:.2f} LM iterations/s, "
                          f"{min(r['ms']):.1f} ms per optimize")
@@ -4370,7 +4667,12 @@ def main():
         + f"; selftest {script_run['selftest']}; demos "
         + "; ".join(f"{k} {script_run[k]['shown']}" for k in
                     ("demo_mapping", "demo_localization", "demo_graph_slam", "demo_wander"))
-        + f"; phases 37-39 {scripts_s:.1f} s with the CPU runs' wait; on {name} ({smi})")
+        + f"; phases 37-39 {scripts_s:.1f} s with the CPU runs' wait; coverage: the k-NN "
+        f"bit for bit at every k of {COVER_KS[0]}..{COVER_KS[-1]} listed, every search kernel "
+        f"at B={WIDE_B}, batch_odometry_solve at B={WIDE_B} {cover['odo']['sps']:.1f} solves/s "
+        f"(rows 0..{BATCH - 1} |dx| {cover['odo']['dx']:.3g}), scan-to-map knn=8 card vs CPU "
+        f"{cover['sm_dx']:.3g}, classify labels differing {cover['labels']}, phase 41 "
+        f"{cover['seconds']:.1f} s; on {name} ({smi})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels and its native host libraries.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+each source for ``sm_90a`` into an object, and one more links them into
 ``_build/libcooper_kernels.so``, a shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds, not minutes), which
 ``ctypes`` loads.
@@ -37,7 +38,7 @@ NATIVE = os.path.join(os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libcooper_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # native/Makefile's CXXFLAGS without -march=native, and each library's own flags
 HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 HOST_LIBS = {"sweep_binner": ["-fopenmp"], "cube_pager": ["-lpthread"]}
@@ -90,10 +91,29 @@ def find_cxx() -> str | None:
     return shutil.which(os.environ.get("CXX") or "g++")
 
 
+def _run_all(cmds):
+    """Run the commands at once; (joined command + output, return code) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return [(" ".join(c) + "\n" + p.communicate()[0], p.returncode)
+            for c, p in zip(cmds, procs)]
+
+
+def _nvcc_steps(out):
+    """The kernel library's build: every source compiled at once into an
+    object in ``_build/``, then the objects linked into ``out``."""
+    nvcc, sources = find_nvcc(), _sources()
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + ".o") for src in sources]
+    return [[[nvcc, *NVCC_FLAGS, "-c", "-o", o, src] for o, src in zip(objs, sources)],
+            [[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]]]
+
+
 def _build_locked(lib_name: str, digest: str, cmds_for, log_name: str):
     """Unless ``_build/lib_name`` is stamped with ``digest``, run the compile
     commands ``cmd_for(out_path)`` of ``cmds_for`` under the build lock, in
-    order, until one succeeds.  Returns (the library's path, the compile's
+    order, until one succeeds.  A command may also be a list of steps, each
+    a list of commands run at once, the next step only after every command
+    of the one before succeeded.  Returns (the library's path, the compile's
     seconds or None when nothing was built)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, lib_name)
@@ -110,17 +130,23 @@ def _build_locked(lib_name: str, digest: str, cmds_for, log_name: str):
             t0 = time.perf_counter()
             for cmd_for in cmds_for:
                 cmd = cmd_for(tmp)
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-                if res.returncode == 0:
+                steps = cmd if isinstance(cmd[0], list) else [[cmd]]
+                for step in steps:
+                    done = _run_all(step)
+                    log += [text for text, _ in done]
+                    rc = next((code for _, code in done if code != 0), 0)
+                    if rc != 0:
+                        break
+                if rc == 0:
                     break
             seconds = time.perf_counter() - t0
+            last = " && ".join(" ".join(c) for step in steps for c in step)
             with open(os.path.join(BUILD_DIR, log_name), "w") as f:
                 f.write("\n".join(log))
-                if res.returncode == 0:
-                    f.write("built with: " + " ".join(cmd) + "\n")
-            if res.returncode != 0:
-                raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({res.returncode}):\n"
+                if rc == 0:
+                    f.write("built with: " + last + "\n")
+            if rc != 0:
+                raise RuntimeError(f"{os.path.basename(steps[0][0][0])} failed ({rc}):\n"
                                    + "\n".join(log))
             os.replace(tmp, lib_path)
             with open(stamp, "w") as f:
@@ -134,9 +160,8 @@ def build() -> str:
     """Compile the kernels if the library is missing or stale; return its path."""
     global build_seconds
     sources = _sources()
-    path, seconds = _build_locked(
-        LIB_NAME, _digest(sources + _headers()),
-        [lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", out, *sources]], "build.log")
+    path, seconds = _build_locked(LIB_NAME, _digest(sources + _headers()), [_nvcc_steps],
+                                  "build.log")
     if seconds is not None:
         build_seconds = seconds
     return path
@@ -187,10 +212,16 @@ def library() -> ctypes.CDLL:
         lib.cooper_merge_min.argtypes = [P, P, P, P, LL, I, I, P]
         lib.cooper_knn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.cooper_knn_block_queries.argtypes = [I]
+        lib.cooper_knn_register_max_k.argtypes = []
+        lib.cooper_knn_select.argtypes = [P, P, P, P, P, P, I, I, I, I, I, LL, P]
+        lib.cooper_knn_select_keys.argtypes = [I]
+        lib.cooper_knn_select_smem_keys.argtypes = []
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
                    lib.cooper_fused_races, lib.cooper_fused_block_threads,
                    lib.cooper_merge_min, lib.cooper_knn, lib.cooper_nn1_block_queries,
-                   lib.cooper_bc_races_block_queries, lib.cooper_knn_block_queries):
+                   lib.cooper_bc_races_block_queries, lib.cooper_knn_block_queries,
+                   lib.cooper_knn_register_max_k, lib.cooper_knn_select,
+                   lib.cooper_knn_select_keys, lib.cooper_knn_select_smem_keys):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

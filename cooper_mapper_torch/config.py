@@ -6,10 +6,16 @@ Field-for-field copies of every configuration class in
 copy because it must import nothing of the JAX package.
 ``OdometryConfig``'s ``nn_query_chunk``, ``kernel_backend``,
 ``nn_precision`` and ``unroll_iters`` and ``ScanMatchConfig.kernel_backend``
-are carried for field parity only, and the solves raise unless they keep
-their defaults: the port's dispatch follows the tensors' device (a CUDA
-tensor launches the kernels, a CPU tensor runs their plain versions), its
-products are always full f32, and its GN loops are Python loops.
+are the JAX package's memory, dispatch and loop knobs.  The port accepts
+each at every value the JAX package accepts, since on the CPU the JAX
+package gives its default's result at each (``ops/odometry.check_knobs``):
+``nn_query_chunk`` caps the plain
+versions' query chunk (the card's kernels hold no distance tile);
+``kernel_backend`` ("auto", "pallas" or "dense") names the same search,
+which follows the tensors' device (a CUDA tensor launches the kernels, a
+CPU tensor runs their plain versions); every ``nn_precision`` string the
+JAX package accepts leaves the port's full-f32 products as they are; and
+``unroll_iters`` changes nothing (the GN loops are Python loops).
 """
 
 from __future__ import annotations

@@ -1,0 +1,12 @@
+// The k-NN's register lists for 17 <= k <= 24 (knn_lists.cuh), in a
+// translation unit of their own so that the build compiles them beside the
+// others, in parallel.  knn.cu's cooper_knn calls knn_lists_17_24.
+
+#include "knn_lists.cuh"
+
+int knn_lists_17_24(int k, const float* q, const float* r, const float* rn, float* out_d,
+                    int* out_i, float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
+                    int S, int L, cudaStream_t stream) {
+  return launch_knn_in<17, 24>(k, q, r, rn, out_d, out_i, part_d, part_i, B, Q, M,
+                                  r_bstride, S, L, stream);
+}

@@ -1,7 +1,7 @@
 // Nearest-neighbour race kernels of the scan-to-scan correspondence search,
 // hand-written for Hopper (sm_90a).  Built by cooper_mapper_torch/build.py with
-// one plain nvcc call into a C-ABI shared library that Python loads with
-// ctypes; no PyTorch header is included.
+// plain nvcc (one process per source, then one link) into a C-ABI shared
+// library that Python loads with ctypes; no PyTorch header is included.
 //
 // Replaces (cooper_mapper_tpu/ops/pallas/nn1.py):
 //   nn1_kernel       <- nn1_pallas        / _nn1_kernel         (race A)
@@ -40,7 +40,9 @@
 // by FP32 issue rate, not by bandwidth.
 //
 // What the designs do about it.  All four kernels keep their queries' running
-// minima in registers; blockIdx.y is the problem.  A block stages TILE_M
+// minima in registers; blockIdx.y is the problem (a batch of more than
+// 65,535 problems, CUDA's cap on grid y, is launched in slabs of at most
+// that many: split.cuh's over_slabs).  A block stages TILE_M
 // reference points as float4 (x, y, z, |r|^2) plus a float ring in shared
 // memory, so the inner loop is one 16-byte shared broadcast and the
 // arithmetic, nothing else.  The ragged last tile is bounded by M itself; no
@@ -823,7 +825,24 @@ int merge_one(const float* part_d, const int* part_i, float* out_d, int* out_i, 
   return launch_merge_min(part_d, part_i, out, n, S, 1, st);
 }
 
-// nn1_masked's launches: whole (S = 1) or split with the merge.
+// nn1's launches for B <= MAX_GRID_Y problems: whole (S = 1) or split with
+// the merge.
+int launch_nn1(const float* q, const float* r, const bool* mask, float* out_d, int* out_i,
+               float* part_d, int* part_i, int B, int Q, int M, int r_bstride, int S, int L,
+               cudaStream_t st) {
+  if (S == 1) {
+    nn1_kernel<WHOLE_QPT><<<race_grid<WHOLE_QPT>(B, Q, 1), THREADS, 0, st>>>(
+        q, r, mask, out_d, out_i, Q, M, r_bstride, M, 0);
+    return (int)cudaGetLastError();
+  }
+  const long long n = (long long)B * Q;
+  nn1_kernel<SPLIT_QPT><<<race_grid<SPLIT_QPT>(B, Q, S), THREADS, 0, st>>>(
+      q, r, mask, part_d, part_i, Q, M, r_bstride, L, n);
+  return merge_one(part_d, part_i, out_d, out_i, n, S, st);
+}
+
+// nn1_masked's launches for B <= MAX_GRID_Y problems: whole (S = 1) or
+// split with the merge.
 template <RaceKind K>
 int launch_masked(const float* q, const int* ring_a, const int* ia, const float* r,
                   const bool* mask, const int* ring, float* out_d, int* out_i, float* part_d,
@@ -840,60 +859,12 @@ int launch_masked(const float* q, const int* ring_a, const int* ia, const float*
   return merge_one(part_d, part_i, out_d, out_i, n, S, st);
 }
 
-}  // namespace
-
-// C interface.  Pointers are device pointers of contiguous f32/i32 tensors:
-// q [B,Q,3]; r [*,M,3]; rn, ring [*,M]; ra, ia and outputs [B,Q].
-// r_bstride is the reference's batch stride in points (0 = shared).
-// Each returns the cudaGetLastError() code of its launch (0 = launched).
-extern "C" {
-
-// Queries one block of a split nn1 / nn1_masked launch serves: the unit of
-// the caller's split plan.  A launch with S == 1 serves WHOLE_QPT per thread.
-int cooper_nn1_block_queries() { return THREADS * SPLIT_QPT; }
-
-// nn1 and nn1_masked read the reference as the caller holds it: r [*,M,3]
-// f32, mask [*,M] bool (one byte), ring [*,M] i32, ring_a and ia [B,Q] i32.
-// Block z scans [z*L, min(M, (z+1)*L)); the caller guarantees
-// (S-1)*L < M <= S*L.  With S > 1, part_d / part_i [S,B,Q] take the chunks'
-// results before merge_min joins them (unused, may be null, when S == 1).
-int cooper_nn1(const float* q, const float* r, const bool* mask, float* out_d, int* out_i,
-               float* part_d, int* part_i, int B, int Q, int M, int r_bstride, int S, int L,
-               void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (S == 1) {
-    nn1_kernel<WHOLE_QPT><<<race_grid<WHOLE_QPT>(B, Q, 1), THREADS, 0, st>>>(
-        q, r, mask, out_d, out_i, Q, M, r_bstride, M, 0);
-    return (int)cudaGetLastError();
-  }
-  const long long n = (long long)B * Q;
-  nn1_kernel<SPLIT_QPT><<<race_grid<SPLIT_QPT>(B, Q, S), THREADS, 0, st>>>(
-      q, r, mask, part_d, part_i, Q, M, r_bstride, L, n);
-  return merge_one(part_d, part_i, out_d, out_i, n, S, st);
-}
-
-int cooper_nn1_masked(const float* q, const int* ring_a, const int* ia, const float* r,
-                      const bool* mask, const int* ring, float* out_d, int* out_i,
-                      float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
-                      int mode_same, float span, int S, int L, void* stream) {
-  return (mode_same ? launch_masked<RACE_SAME> : launch_masked<RACE_ADJ>)(
-      q, ring_a, ia, r, mask, ring, out_d, out_i, part_d, part_i, B, Q, M, r_bstride, span, S,
-      L, (cudaStream_t)stream);
-}
-
-// Queries one block of bc_races_kernel serves.
-int cooper_bc_races_block_queries() { return THREADS; }
-
-// Block z scans [z*L, min(M, (z+1)*L)); the caller guarantees
-// (S-1)*L < M <= S*L.  With S > 1, part_d / part_i [2,S,B,Q] take the
-// chunks' (B, C) results before merge_min joins them (unused, may be null,
-// when S == 1).
-int cooper_bc_races(const float* q, const float* ra, const int* ia,
-                    const float* r, const float* rn, const float* ring,
-                    float* out_db, int* out_ib, float* out_dc, int* out_ic,
-                    float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
-                    float span, int S, int L, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+// bc_races' launches for B <= MAX_GRID_Y problems: whole (S = 1) or split
+// with the merge of both races.
+int launch_bc_races(const float* q, const float* ra, const int* ia, const float* r,
+                    const float* rn, const float* ring, float* out_db, int* out_ib,
+                    float* out_dc, int* out_ic, float* part_d, int* part_i, int B, int Q,
+                    int M, int r_bstride, float span, int S, int L, cudaStream_t st) {
   const long long n = (long long)B * Q;
   const dim3 grid((Q + THREADS - 1) / THREADS, B, S);
   if (S == 1) {
@@ -912,6 +883,69 @@ int cooper_bc_races(const float* q, const float* ra, const int* ia,
   return launch_merge_min(part_d, part_i, out, n, S, 2, st);
 }
 
+}  // namespace
+
+// C interface.  Pointers are device pointers of contiguous f32/i32 tensors:
+// q [B,Q,3]; r [*,M,3]; rn, ring [*,M]; ra, ia and outputs [B,Q].
+// r_bstride is the reference's batch stride in points (0 = shared).  Any
+// B >= 1: more than MAX_GRID_Y problems are launched in slabs (over_slabs),
+// a slab's pointers moved to its first problem; the split scratch is reused
+// by each slab in turn.
+// Each returns the cudaGetLastError() code of its launches (0 = launched).
+extern "C" {
+
+// Queries one block of a split nn1 / nn1_masked launch serves: the unit of
+// the caller's split plan.  A launch with S == 1 serves WHOLE_QPT per thread.
+int cooper_nn1_block_queries() { return THREADS * SPLIT_QPT; }
+
+// nn1 and nn1_masked read the reference as the caller holds it: r [*,M,3]
+// f32, mask [*,M] bool (one byte), ring [*,M] i32, ring_a and ia [B,Q] i32.
+// Block z scans [z*L, min(M, (z+1)*L)); the caller guarantees
+// (S-1)*L < M <= S*L.  With S > 1, part_d / part_i [S,B,Q] take the chunks'
+// results before merge_min joins them (unused, may be null, when S == 1).
+int cooper_nn1(const float* q, const float* r, const bool* mask, float* out_d, int* out_i,
+               float* part_d, int* part_i, int B, int Q, int M, int r_bstride, int S, int L,
+               void* stream) {
+  return over_slabs(B, [&](int b0, int nb) {
+    const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
+    return launch_nn1(q + 3 * qo, r + 3 * ro, mask + ro, out_d + qo, out_i + qo, part_d,
+                      part_i, nb, Q, M, r_bstride, S, L, (cudaStream_t)stream);
+  });
+}
+
+int cooper_nn1_masked(const float* q, const int* ring_a, const int* ia, const float* r,
+                      const bool* mask, const int* ring, float* out_d, int* out_i,
+                      float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
+                      int mode_same, float span, int S, int L, void* stream) {
+  const auto launch = mode_same ? launch_masked<RACE_SAME> : launch_masked<RACE_ADJ>;
+  return over_slabs(B, [&](int b0, int nb) {
+    const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
+    return launch(q + 3 * qo, ring_a + qo, ia + qo, r + 3 * ro, mask + ro, ring + ro,
+                  out_d + qo, out_i + qo, part_d, part_i, nb, Q, M, r_bstride, span, S, L,
+                  (cudaStream_t)stream);
+  });
+}
+
+// Queries one block of bc_races_kernel serves.
+int cooper_bc_races_block_queries() { return THREADS; }
+
+// Block z scans [z*L, min(M, (z+1)*L)); the caller guarantees
+// (S-1)*L < M <= S*L.  With S > 1, part_d / part_i [2,S,B,Q] take the
+// chunks' (B, C) results before merge_min joins them (unused, may be null,
+// when S == 1).
+int cooper_bc_races(const float* q, const float* ra, const int* ia,
+                    const float* r, const float* rn, const float* ring,
+                    float* out_db, int* out_ib, float* out_dc, int* out_ic,
+                    float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
+                    float span, int S, int L, void* stream) {
+  return over_slabs(B, [&](int b0, int nb) {
+    const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
+    return launch_bc_races(q + 3 * qo, ra + qo, ia + qo, r + 3 * ro, rn + ro, ring + ro,
+                           out_db + qo, out_ib + qo, out_dc + qo, out_ic + qo, part_d, part_i,
+                           nb, Q, M, r_bstride, span, S, L, (cudaStream_t)stream);
+  });
+}
+
 // Threads per block of the fused kernel: a block serves THREADS / G * QPT
 // queries (ops/races._fused_plan).
 int cooper_fused_block_threads() { return THREADS; }
@@ -925,9 +959,13 @@ int cooper_fused_races(const float* q, const float* r, const bool* mask, const i
                        float* out_da, int* out_ia, float* out_db, int* out_ib, float* out_dc,
                        int* out_ic, int B, int Q, int M, int r_bstride, int with_same,
                        float span, int G, int QPT, void* stream) {
-  return (with_same ? launch_fused_plan<true> : launch_fused_plan<false>)(
-      G, QPT, q, r, mask, ring, out_da, out_ia, out_db, out_ib, out_dc, out_ic, B, Q, M,
-      r_bstride, span, (cudaStream_t)stream);
+  const auto launch = with_same ? launch_fused_plan<true> : launch_fused_plan<false>;
+  return over_slabs(B, [&](int b0, int nb) {
+    const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
+    return launch(G, QPT, q + 3 * qo, r + 3 * ro, mask + ro, ring + ro, out_da + qo,
+                  out_ia + qo, out_db ? out_db + qo : nullptr, out_ib ? out_ib + qo : nullptr,
+                  out_dc + qo, out_ic + qo, nb, Q, M, r_bstride, span, (cudaStream_t)stream);
+  });
 }
 
 // merge_min on its own: part_d / part_i [searches, S, n] -> out_d / out_i

@@ -63,6 +63,24 @@ __device__ __forceinline__ void insert_sorted(float (&bd)[K], int (&bi)[K], floa
   bi[0] = c[0] ? j : bi[0];
 }
 
+// Problems per launch of a search kernel: grid y is the problem, and CUDA
+// caps grid y at 65,535.  A batch of more problems is launched in slabs of
+// at most this many, each with its pointers moved to its first problem
+// (over_slabs), so a launch of B <= 65,535 problems is the same one launch.
+constexpr int MAX_GRID_Y = 65535;
+
+// launch(b0, nb) for each slab [b0, b0 + nb) of the B problems, in order;
+// returns the first non-zero code, else 0.  Launches of one stream run in
+// order, so a slab's scratch is free again for the next one.
+template <typename Launch>
+inline int over_slabs(int B, Launch launch) {
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    const int err = launch(b0, B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
+    if (err) return err;
+  }
+  return 0;
+}
+
 // The chunk a block of a split search scans: [c0, c1).  S = 1 is the whole.
 __device__ __forceinline__ void chunk_of_block(int M, int L, int& c0, int& c1) {
   c0 = blockIdx.z * L;

@@ -8,13 +8,13 @@ classify planar points as surf features and edge points as corner
 features, insert them into a cube map, and save the cube manifest.
 
 The structure comes from a k-NN PCA over the whole cloud: the k neighbours
-of every point from ``ops/knn.knn`` (on the card the CUDA k-NN kernel at
-k = 10, whose k are 5 and 10; on the CPU ``knn_plain``, which chunks the
-distance tile itself, so the JAX package's ``chunk`` argument has no
-counterpart), then the eigenvalues of the neighbourhood covariance
-(``torch.linalg.eigvalsh``): planarity marks surf points, linearity corner
-points.  Points past a cube's capacity are dropped on insertion, as in the
-JAX package (``feature_map._insert``).
+of every point from ``ops/knn.knn`` (on the card the CUDA k-NN kernels at
+the caller's k, 10 by default, any ``1 <= k <= N``; on the CPU
+``knn_plain``, which chunks the distance tile itself, so the JAX package's
+``chunk`` argument has no counterpart), then the eigenvalues of the
+neighbourhood covariance (``torch.linalg.eigvalsh``): planarity marks surf
+points, linearity corner points.  Points past a cube's capacity are dropped
+on insertion, as in the JAX package (``feature_map._insert``).
 """
 
 from __future__ import annotations

@@ -95,6 +95,25 @@ def _cholesky6_solve(A, b):
     return torch.stack(x, dim=-1)
 
 
+# Matrices per eigh call: on the card, cuSOLVER's batched solver
+# (cusolverDnXsyevBatched) rejects 32768 or more in one call
+# (CUSOLVER_STATUS_INVALID_VALUE), and a batch of problems may hold more.
+EIGH_BATCH = 1 << 14
+
+
+def eigh(A):
+    """``torch.linalg.eigh`` of a batch [..., n, n], EIGH_BATCH matrices per
+    call where the batch is larger (each matrix is solved on its own, so the
+    pieces give what one call would)."""
+    lead = A.shape[:-2]
+    flat = A.reshape(-1, *A.shape[-2:])
+    if flat.shape[0] <= EIGH_BATCH:
+        return torch.linalg.eigh(A)
+    parts = [torch.linalg.eigh(c) for c in flat.split(EIGH_BATCH)]
+    return (torch.cat([p[0] for p in parts]).reshape(*lead, -1),
+            torch.cat([p[1] for p in parts]).reshape(A.shape))
+
+
 def degeneracy_projector(JtJ, eig_threshold, reference_mode: bool = False):
     """Projector that removes the update directions whose eigenvalue of JtJ
     is below the threshold (LaserOdometry.cpp:583-608, ScanMatch.cpp:211-235).
@@ -107,8 +126,8 @@ def degeneracy_projector(JtJ, eig_threshold, reference_mode: bool = False):
     back with (flipping column a flips P[a, b] for every b != a), so it is
     as reproducible as the eigensolver's signs (ROADMAP Queue 3).
     ``torch.linalg.eigh`` stays a library call, as ``jnp.linalg.eigh`` does
-    in the JAX package."""
-    evals, V = torch.linalg.eigh(JtJ)       # ascending
+    in the JAX package (``eigh``: in pieces of EIGH_BATCH)."""
+    evals, V = eigh(JtJ)       # ascending
     keep = evals >= eig_threshold
     is_degenerate = torch.any(~keep, dim=-1)
     if reference_mode:

@@ -13,12 +13,19 @@ Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask
 ``[B, Q, k]``: int32 indices in ``[0, M)`` and f32 squared distances.
 
 Dispatch follows the device: a CPU tensor runs ``knn_plain``, a CUDA tensor
-launches the kernel (``csrc/knn.cu``, k = 5 or 10) or raises.  Where the
-query blocks would not give every SM of the card one (B = 1), the kernel
-splits M across blocks and merges their sorted lists in chunk order
-(``races._split_plan``, ``csrc/split.cuh``): the same bits as one scan.
-Kernel and plain version evaluate the distance with the same f32 operations
-in the same order (``races.pairwise_sq_dist``), so they agree bit for bit.
+launches a kernel of ``csrc/knn.cu`` or raises, for every k with
+``1 <= k <= M`` and any B.  Up to the library's
+``cooper_knn_register_max_k()`` (32) each query's list lives in registers
+(``knn_kernel<k, QPT>``); where the query blocks would not give every SM of
+the card one (B = 1), that kernel splits M across blocks and merges their
+sorted lists in chunk order (``races._split_plan``, ``csrc/split.cuh``): the
+same bits as one scan.  A larger k takes the select route
+(``knn_select_kernel``, counted by ``knn_select``): a block per query finds
+the k-th smallest (distance, index) key by radix select, gathers the k keys
+at or under it and sorts them.  Both routes evaluate the distance with the
+plain version's f32 operations in its order (``races.pairwise_sq_dist``), so
+they agree with it bit for bit.  They differ from it where a distance is
+NaN: a NaN never enters a list, so a NaN query gives (+inf, 0..k-1).
 """
 
 from __future__ import annotations
@@ -42,13 +49,13 @@ def _check_knn(q, r_xyz, r_mask, k: int):
     return B, Q, M, shared
 
 
-def _chunks(B, Q, M, shared, device_type):
+def _chunks(B, Q, M, device_type):
     """(batch slice, query slice) pairs covering [B, Q], each with at most
-    ~_PLAIN_CHUNK_ELEMS distances.  A shared reference lets one chunk span
-    several problems; a per-problem one is cut per problem."""
+    ~_PLAIN_CHUNK_ELEMS distances: whole problems where several fit, else
+    query slices of one problem."""
     per_q = max(1, _PLAIN_CHUNK_ELEMS[device_type] // M)
     if per_q >= Q:
-        step = max(1, per_q // Q) if shared else 1
+        step = max(1, per_q // Q)
         return [(slice(s, min(B, s + step)), slice(0, Q)) for s in range(0, B, step)]
     return [(slice(b, b + 1), slice(s, min(Q, s + per_q)))
             for b in range(B) for s in range(0, Q, per_q)]
@@ -107,7 +114,7 @@ def knn_plain(q, r_xyz, r_mask, k: int = 5):
     rn = races._ref_norms(r_xyz, r_mask)
     idx = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
     dist = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
-    for bs, qs in _chunks(B, Q, M, shared, q.device.type):
+    for bs, qs in _chunks(B, Q, M, q.device.type):
         r, n = (r_xyz, rn) if shared else (r_xyz[bs], rn[bs])
         idx[bs, qs], dist[bs, qs] = _first_k(races.pairwise_sq_dist(q[bs, qs], r, n), k)
     return idx, dist
@@ -118,11 +125,50 @@ def knn(q, r_xyz, r_mask, k: int = 5):
     (distance, index)."""
     if not races._require_device(q):
         return knn_plain(q, r_xyz, r_mask, k)
+    from ..build import library
+
+    if k > library().cooper_knn_register_max_k():
+        return _knn_select_cuda(q, r_xyz, r_mask, k)
     return _knn_cuda(q, r_xyz, r_mask, k)
 
 
+def knn_select(q, r_xyz, r_mask, k: int):
+    """The select route of the k-NN on its own, for any ``1 <= k <= M``:
+    the same lists as ``knn``.  ``knn`` takes it on the card for every k
+    above the register lists' largest."""
+    if not races._require_device(q):
+        return knn_plain(q, r_xyz, r_mask, k)
+    return _knn_select_cuda(q, r_xyz, r_mask, k)
+
+
+# Bytes of the select route's scratch for one launch, where a query's keys
+# exceed shared memory (k > 4096): the queries go rows at a time.
+_SELECT_SCRATCH_BYTES = 1 << 27
+
+
+def _knn_select_cuda(q, r_xyz, r_mask, k):
+    """The select kernel on CUDA tensors: one block per query."""
+    from ..build import library
+
+    lib = library()
+    B, Q, M, shared = _check_knn(q, r_xyz, r_mask, k)
+    rn = races._ref_norms(r_xyz, r_mask)
+    out_d = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
+    keys, rows, scratch = lib.cooper_knn_select_keys(k), 1, None
+    if keys > lib.cooper_knn_select_smem_keys():
+        rows = max(1, min(B * Q, _SELECT_SCRATCH_BYTES // (8 * keys)))
+        scratch = torch.empty((rows, keys), dtype=torch.int64, device=q.device)
+    races._launch("knn_select", q, lib.cooper_knn_select,
+                  q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
+                  out_i.data_ptr(), races._ptr(scratch), B, Q, M, 0 if shared else M, k, rows)
+    knn_select.launches += 1
+    return out_i, out_d
+
+
 def _knn_cuda(q, r_xyz, r_mask, k=5, plan=None):
-    """The k-NN kernel on CUDA tensors; ``plan`` = (S, L) overrides
+    """The k-NN kernel on CUDA tensors (the register lists, k up to
+    ``cooper_knn_register_max_k()``); ``plan`` = (S, L) overrides
     ``_split_plan`` (the card tests pin chunk edges with it)."""
     from ..build import library
 
@@ -130,7 +176,9 @@ def _knn_cuda(q, r_xyz, r_mask, k=5, plan=None):
     B, Q, M, shared = _check_knn(q, r_xyz, r_mask, k)
     block_queries = lib.cooper_knn_block_queries(k)
     if block_queries == 0:
-        raise ValueError(f"the CUDA k-NN kernel is built for k = 5 and 10, got k={k}")
+        raise ValueError(f"the k-NN's register lists serve k <= "
+                         f"{lib.cooper_knn_register_max_k()}, got k={k}: knn() takes the "
+                         "select route above")
     S, L = plan or _split_plan(B, Q, M, races.sm_count(q.device), block_queries)
     races._check_plan(S, L, M)
     rn = races._ref_norms(r_xyz, r_mask)
@@ -148,4 +196,4 @@ def _knn_cuda(q, r_xyz, r_mask, k=5, plan=None):
 
 knn.launches = 0
 knn.merges = 0   # calls that split M and launched the merge (merge_first_k) too
-KERNELS = (knn,)
+knn_select.launches = 0

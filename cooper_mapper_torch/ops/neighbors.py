@@ -19,6 +19,12 @@ the one-launch ``races.fused_races`` under the JAX package's gate
 (``_fused_tile_q``): M rounded up to 128 at most 8192, Q a multiple of 128.
 It is off by default, as in the JAX package.  On every query whose nearest
 reference point is valid, both routes give the same selections.
+
+``query_chunk > 0`` (``OdometryConfig.nn_query_chunk``) runs a CPU search in
+query chunks of that size, padded like the JAX package's
+``_chunked_queries``, so that the plain versions' distance tile is at most
+``[b, query_chunk, M]``.  The card's kernels hold no such tile and ignore
+it.
 """
 
 from __future__ import annotations
@@ -53,12 +59,33 @@ def fused_route(n_queries: int, n_ref: int) -> bool:
     return -(-n_ref // 128) * 128 <= 8192 and n_queries % 128 == 0
 
 
-def corner_pairs(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
+def _chunked_queries(search, q_xyz, query_chunk: int):
+    """``search`` over query chunks of ``query_chunk`` (the last padded with
+    far queries at 1e6, as the JAX package pads), outputs [B, Q] joined
+    along the query axis."""
+    Q = q_xyz.shape[-2]
+    pad = (-Q) % query_chunk
+    if pad:
+        q_xyz = torch.cat([q_xyz, q_xyz.new_full((q_xyz.shape[0], pad, 3), 1e6)], dim=1)
+    parts = [search(q_xyz[:, s:s + query_chunk].contiguous())
+             for s in range(0, Q + pad, query_chunk)]
+    return tuple(torch.cat(p, dim=1)[:, :Q] for p in zip(*parts))
+
+
+def _plain_chunks(q_xyz, query_chunk: int) -> bool:
+    return bool(query_chunk) and q_xyz.device.type == "cpu" and q_xyz.shape[-2] > query_chunk
+
+
+def corner_pairs(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5,
+                 query_chunk: int = 0):
     """Odometry corner correspondences (LaserOdometry.cpp:358-408).
 
     A = nearest reference corner; B = nearest corner on a different ring
     within ``ring_span`` rings of A's ring.  Returns (ia, ib, valid), [B, Q].
     """
+    if _plain_chunks(q_xyz, query_chunk):
+        return _chunked_queries(lambda qc: corner_pairs(qc, ref, max_sq_dist, ring_span),
+                                q_xyz, query_chunk)
     if fused_route(q_xyz.shape[-2], ref.capacity):
         ia, da, ib, db = races.fused_races(q_xyz, ref.xyz, ref.ring, ref.mask, False,
                                            ring_span)
@@ -70,13 +97,17 @@ def corner_pairs(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
     return ia, ib, (da < max_sq_dist) & (db < max_sq_dist)
 
 
-def surf_triples(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
+def surf_triples(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5,
+                 query_chunk: int = 0):
     """Odometry surface correspondences (LaserOdometry.cpp:421-497).
 
     A = nearest surf point; B = nearest other surf point on A's ring;
     C = nearest surf point on a different ring within ``ring_span``.
     Returns (ia, ib, ic, valid), [B, Q].
     """
+    if _plain_chunks(q_xyz, query_chunk):
+        return _chunked_queries(lambda qc: surf_triples(qc, ref, max_sq_dist, ring_span),
+                                q_xyz, query_chunk)
     if fused_route(q_xyz.shape[-2], ref.capacity):
         ia, da, ib, db, ic, dc = races.fused_races(q_xyz, ref.xyz, ref.ring, ref.mask,
                                                    True, ring_span)
@@ -90,8 +121,8 @@ def surf_triples(q_xyz, ref: Cloud, max_sq_dist: float, ring_span: float = 2.5):
 
 
 def knn_search(q_xyz, r_xyz, r_mask, k: int):
-    """k-NN for the scan-to-map searches: (idx [B, Q, k] int32, sq_dist
-    [B, Q, k]) ascending by (distance, index).  The JAX package's ``chunk``
-    and ``backend`` arguments have no counterpart: the plain version picks
-    its own chunks, and the device picks the path."""
+    """k-NN for the scan-to-map searches, any ``1 <= k <= M``: (idx [B, Q, k]
+    int32, sq_dist [B, Q, k]) ascending by (distance, index).  The JAX
+    package's ``chunk`` and ``backend`` arguments have no counterpart: the
+    plain version picks its own chunks, and the device picks the path."""
     return _knn.knn(q_xyz, r_xyz, r_mask, k)

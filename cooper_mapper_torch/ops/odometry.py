@@ -115,9 +115,9 @@ def _find_correspondences(x, sharp: Cloud, flat: Cloud, last_corner: Cloud,
     pc = _warp(x, sharp, rigid)
     ps = _warp(x, flat, rigid)
     ia_c, ib_c, ok_c = neighbors.corner_pairs(pc, last_corner, cfg.nn_sq_dist_max,
-                                              cfg.ring_span)
+                                              cfg.ring_span, cfg.nn_query_chunk)
     ia_s, ib_s, ic_s, ok_s = neighbors.surf_triples(ps, last_surf, cfg.nn_sq_dist_max,
-                                                    cfg.ring_span)
+                                                    cfg.ring_span, cfg.nn_query_chunk)
     shared_c = last_corner.xyz.dim() == 2
     shared_s = last_surf.xyz.dim() == 2
     take = neighbors.take_ref
@@ -132,18 +132,27 @@ def _find_correspondences(x, sharp: Cloud, flat: Cloud, last_corner: Cloud,
     )
 
 
-# fields carried for parity with the JAX package's config only: the port's
-# dispatch follows the tensors' device, its products are full f32 and its
-# GN loop is a Python loop, so each must keep its default
-_PARITY_ONLY = ("nn_query_chunk", "kernel_backend", "nn_precision", "unroll_iters")
+# The JAX package's kernel_backend values, and the nn_precision strings it
+# accepts (jax.lax.Precision's names): on the CPU each gives the default's
+# distances there, and the port's products stay full f32 at every one.
+KERNEL_BACKENDS = ("auto", "pallas", "dense")
+NN_PRECISIONS = (None, "default", "high", "highest", "bfloat16", "bfloat16_3x",
+                 "tensorfloat32", "float32", "fastest")
 
 
-def _check_supported(cfg: OdometryConfig):
-    for name in _PARITY_ONLY:
-        default = getattr(OdometryConfig, name)
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"OdometryConfig.{name} is carried for parity only; keep it at {default!r}")
+def check_knobs(kernel_backend, nn_precision=None, nn_query_chunk=0):
+    """Validate the JAX package's dispatch, precision and memory knobs.
+    None of them changes a result: ``kernel_backend`` names the same search
+    (the tensors' device picks kernel or plain version, never the knob), the
+    products are full f32 at every ``nn_precision``, and ``nn_query_chunk``
+    only caps the plain versions' distance tile."""
+    if kernel_backend not in KERNEL_BACKENDS:
+        raise ValueError(f"kernel_backend must be one of {KERNEL_BACKENDS}, got "
+                         f"{kernel_backend!r}")
+    if nn_precision not in NN_PRECISIONS:
+        raise ValueError(f"nn_precision must be one of {NN_PRECISIONS}, got {nn_precision!r}")
+    if not (isinstance(nn_query_chunk, int) and nn_query_chunk >= 0):
+        raise ValueError(f"nn_query_chunk must be an int >= 0, got {nn_query_chunk!r}")
 
 
 def _odometry_solve_pass(sharp: Cloud, flat: Cloud, last_corner: Cloud,
@@ -236,7 +245,7 @@ def batch_odometry_solve(sharp: Cloud, flat: Cloud, last_corner: Cloud,
     again: the constant-velocity prior is exact only at constant motion
     (OdometryConfig.dewarp_passes).
     """
-    _check_supported(cfg)
+    check_knobs(cfg.kernel_backend, cfg.nn_precision, cfg.nn_query_chunk)
     x, st = _odometry_solve_pass(sharp, flat, last_corner, last_surf, x0, cfg, parity_mode)
     if cfg.cv_dewarp and not parity_mode:
         for _ in range(max(cfg.dewarp_passes, 1) - 1):

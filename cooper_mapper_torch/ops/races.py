@@ -20,7 +20,9 @@ version:
 
 Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask and
 ring ``[M]``) or per problem ``[B, M, 3]`` (``[B, M]``).  Outputs are
-``[B, Q]``: int32 indices and f32 squared distances.
+``[B, Q]``: int32 indices and f32 squared distances.  Any B: the kernels
+launch more than 65,535 problems (CUDA's cap on grid y, their problem axis)
+in slabs of at most that many (``csrc/split.cuh`` ``over_slabs``).
 
 Dispatch follows the device: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel (``csrc/races.cu``) or raises.  Where the query
@@ -122,7 +124,7 @@ def _check_race(q, r_xyz, r_mask, r_ring=None, ring_a=None, ia=None):
         raise ValueError(f"reference must be [M, 3] or [B, M, 3], got {tuple(r_xyz.shape)}")
     shared = r_xyz.dim() == 2
     M = r_xyz.shape[-2]
-    if B < 1 or Q < 1 or M < 1 or B > 65535:
+    if B < 1 or Q < 1 or M < 1:
         raise ValueError(f"unsupported race shape B={B}, Q={Q}, M={M}")
     dev = q.device
     lead = () if shared else (B,)

@@ -2,7 +2,8 @@
 (port of ``cooper_mapper_tpu/ops/scan_match.py``; ScanMatch.cpp:51-398).
 
 Per iteration: register the frame's corner/surf features into the map frame
-at the current pose, find their 5 nearest reference points (``ops/knn.py``),
+at the current pose, find their ``cfg.knn`` (5) nearest reference points
+(``ops/knn.py``, any k on the card),
 fit a PCA line to each corner neighbourhood and an LSQ plane to each surf
 neighbourhood, build masked 6-DoF normal equations with the map-variant
 robust weights and take a GN step (the iteration-0 degeneracy projector,
@@ -31,7 +32,7 @@ from ..utils import twist
 from ..utils.cloud import Cloud
 from . import gauss_newton as gn
 from . import neighbors, residuals
-from .odometry import _reference_jacobian_rows
+from .odometry import _reference_jacobian_rows, check_knobs
 from .voxel import voxel_downsample
 
 
@@ -97,13 +98,6 @@ def _build_residuals(x, corner: Cloud, surf: Cloud, ref_corner: Cloud,
     return J, b, ok, found
 
 
-def _check_supported(cfg: ScanMatchConfig):
-    if cfg.kernel_backend != ScanMatchConfig.kernel_backend:
-        raise NotImplementedError(
-            "ScanMatchConfig.kernel_backend is carried for parity only; keep it at "
-            f"{ScanMatchConfig.kernel_backend!r}")
-
-
 def batch_scan_match(corner: Cloud, surf: Cloud, ref_corner: Cloud, ref_surf: Cloud,
                      x0, cfg: ScanMatchConfig = ScanMatchConfig(), chunk: int = 512,
                      parity_mode: bool = False) -> ScanMatchResult:
@@ -116,7 +110,7 @@ def batch_scan_match(corner: Cloud, surf: Cloud, ref_corner: Cloud, ref_surf: Cl
     Every lane runs ``max_iterations`` steps; a converged lane keeps its state.
     ``parity_mode=True`` takes the reference's iteration dynamics.
     """
-    _check_supported(cfg)
+    check_knobs(cfg.kernel_backend)
     n_batch = x0.shape[0]
     enough_ref = ((ref_corner.mask.sum(-1) >= 50) & (ref_surf.mask.sum(-1) >= 100)
                   ).expand(n_batch)

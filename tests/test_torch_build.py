@@ -1,6 +1,7 @@
 """The kernel build's bookkeeping, with a stand-in nvcc: one compiler call
-for all sources, no rebuild while the sources are unchanged, a rebuild when
-one changes.  (The real nvcc build runs on the card: chip_smoke.py.)"""
+per source, started together, and one link of their objects; no rebuild
+while the sources are unchanged, a rebuild when one changes.  (The real
+nvcc build runs on the card: chip_smoke.py.)"""
 
 import os
 import stat
@@ -39,18 +40,22 @@ def fake_toolkit(tmp_path, monkeypatch):
 
 
 def test_one_nvcc_call_then_cached_until_a_source_changes(fake_toolkit):
+    # one nvcc build: a compile per source (in parallel), then one link
     log, csrc = fake_toolkit
     path = build.build()
     assert os.path.isfile(path) and path.endswith(build.LIB_NAME)
     calls = log.read_text().splitlines()
-    assert len(calls) == 1
-    assert "arch=compute_90a,code=sm_90a" in calls[0]
-    assert calls[0].count(".cu") == 2          # every source in the one call
+    assert len(calls) == 3
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    compiles, link = calls[:2], calls[2]
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == ["a.cu", "b.cu"]
+    assert all(" -c " in c and c.count(".cu") == 2 for c in compiles)   # the source, its .cu.o
+    assert "-shared" in link and link.count(".cu.o") == 2
     build.build()
-    assert len(log.read_text().splitlines()) == 1
+    assert len(log.read_text().splitlines()) == 3
     (csrc / "b.cu").write_text("// changed\n")
     build.build()
-    assert len(log.read_text().splitlines()) == 2
+    assert len(log.read_text().splitlines()) == 6
 
 
 def test_a_header_change_rebuilds_and_headers_are_not_compiled(fake_toolkit):
@@ -61,7 +66,7 @@ def test_a_header_change_rebuilds_and_headers_are_not_compiled(fake_toolkit):
     build.build()
     assert ".cuh" not in log.read_text()
     build.build()
-    assert len(log.read_text().splitlines()) == 1
+    assert len(log.read_text().splitlines()) == 3
     (csrc / "shared.cuh").write_text("// changed\n")
     build.build()
-    assert len(log.read_text().splitlines()) == 2
+    assert len(log.read_text().splitlines()) == 6

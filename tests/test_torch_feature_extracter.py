@@ -82,8 +82,8 @@ def _compare_labels(xyz, k):
 
 
 def test_classifies_plane_and_edge_as_jax():
-    # TestFeatureExtracter::test_classifies_plane_and_edge, k = 8 (CPU only:
-    # the card's k-NN builds k = 5 and 10)
+    # TestFeatureExtracter::test_classifies_plane_and_edge, k = 8 (the card
+    # runs it against the CPU in chip_smoke.py phase 41)
     (is_surf, is_corner), _ = _compare_labels(_plane_and_line(), 8)
     assert is_surf[:400].mean() > 0.8
     assert is_corner[400:].mean() > 0.6

@@ -405,8 +405,11 @@ def test_knn_kernel_at_k10_equals_plain_version(cuda, B, Q, M):
     want = knn.knn_plain(q, xyz, mask, 10)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[0].min()) >= 0 and int(got[0].max()) < M
+    # any other k <= M runs as well (the register lists up to 32); k > M raises
+    assert all(torch.equal(a, b) for a, b in zip(knn.knn(q, xyz, mask, 7),
+                                                 knn.knn_plain(q, xyz, mask, 7)))
     with pytest.raises(ValueError):
-        knn.knn(q, xyz, mask, 7)
+        knn.knn(q, xyz, mask, M + 1)
 
 
 @pytest.mark.cuda
@@ -939,3 +942,126 @@ def test_dynamic_map_flush_and_reload_on_card_equal_cpu(cuda, tmp_path, use_nati
         assert torch.equal(ca.xyz, cb.xyz.cpu()) and torch.equal(ca.mask, cb.mask.cpu())
     assert sorted(p.name for p in (tmp_path / "cpu").iterdir()) == \
         sorted(p.name for p in (tmp_path / "cuda").iterdir())
+
+
+# ---------------------------------------------------------------------------
+# The k-NN at every k (register lists k <= 32, the select route above) and
+# every search kernel beyond 65,535 problems
+# ---------------------------------------------------------------------------
+
+EVERY_K = tuple(range(1, 33)) + (33, 64, 100, 257)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("B,Q,M", [(3, 333, 1000), (1, 2048, 8192)])
+def test_knn_every_k_equals_plain_version(cuda, per_problem, B, Q, M):
+    # both routes and (at B = 1) the split of the register lists, every k
+    q, xyz, _, mask = _problem(21, B, Q, M, per_problem, cuda)
+    before = (knn.knn.launches, knn.knn_select.launches)
+    for k in EVERY_K:
+        got, want = knn.knn(q, xyz, mask, k), knn.knn_plain(q, xyz, mask, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+    torch.cuda.synchronize()
+    assert (knn.knn.launches - before[0], knn.knn_select.launches - before[1]) == (32, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 17, 24, 25, 32])
+@pytest.mark.parametrize("M,S", [(600, 4), (41, 8), (1300, 13)])
+def test_knn_every_k_split_under_ties_at_chunk_edges(cuda, k, M, S):
+    # chunks shorter than k included: the merge of each instantiation's
+    # lists in chunk order keeps the one-scan bits
+    if k > M:
+        pytest.skip("k > M is rejected")
+    plan = _plan(M, S)
+    q, xyz, _, mask = _tied(5, 2, 300, M, cuda, edges=range(plan[1], M, plan[1]))
+    got = knn._knn_cuda(q, xyz, mask, k, plan=plan)
+    want = knn.knn_plain(q, xyz, mask, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 100, 1300])
+def test_knn_select_route_ties_nan_and_k_equal_m(cuda, k):
+    # ties listed by index, a NaN query as the register lists give it
+    # (+inf, 0..k-1), and k = M; one point repeated: the first k indices
+    q, xyz, _, mask = _tied(6, 2, 200, 1300, cuda)
+    q[1, 17] = float("nan")
+    idx, d = knn.knn(q, xyz, mask, k)
+    assert torch.isinf(d[1, 17]).all() and idx[1, 17].tolist() == list(range(k))
+    want = knn.knn_plain(q, xyz, mask, k)
+    keep = torch.ones(2, 200, dtype=torch.bool, device=cuda)
+    keep[1, 17] = False
+    assert torch.equal(idx[keep], want[0][keep]) and torch.equal(d[keep], want[1][keep])
+    r = torch.tensor([[1.0, 2.0, 3.0]], device=cuda).repeat(1300, 1)
+    idx, d = knn.knn_select(q[:, :5].contiguous(), r, torch.ones(1300, dtype=torch.bool,
+                                                                 device=cuda), k)
+    assert (idx[0, :3] == torch.arange(k, device=cuda, dtype=torch.int32)).all()
+
+
+@pytest.mark.cuda
+def test_knn_select_route_in_scratch_slabs(cuda, monkeypatch):
+    # keys beyond shared memory, the queries launched a few rows at a time
+    monkeypatch.setattr(knn, "_SELECT_SCRATCH_BYTES", 3 * 8 * 8192)
+    q, xyz, _, mask = _problem(22, 2, 50, 5000, True, cuda)
+    for k in (4097, 5000):
+        got, want = knn.knn(q, xyz, mask, k), knn.knn_plain(q, xyz, mask, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        knn._knn_cuda(q, xyz, mask, 33)      # the register lists stop at 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+@pytest.mark.parametrize("split", [False, True])
+def test_kernels_beyond_65535_problems(cuda, per_problem, split):
+    # B = 65,537: launched in slabs of at most 65,535 problems, each slab's
+    # pointers (queries, per-problem references, outputs) moved to its first
+    # problem and the split's scratch reused; bit for bit with the plain
+    # versions, whole and with M forced into chunks
+    B, Q, M = 65537, 3, 40
+    q, xyz, ring, mask = _problem(23, B, Q, M, per_problem, cuda)
+    plan = _plan(M, 3) if split else None
+    i, d = races._nn1_cuda(q, xyz, mask, plan=plan)
+    want = races.nn1_plain(q, xyz, mask)
+    assert torch.equal(i, want[0]) and torch.equal(d, want[1])
+    ring_a = take_ref(ring, i, not per_problem)
+    for mode in ("adj", "same"):
+        args = (q, ring_a, i, xyz, ring, mask, mode, SPAN)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(races._nn1_masked_cuda(*args, plan=plan), races.nn1_masked_plain(*args)))
+    args = (q, ring_a, i, xyz, ring, mask, SPAN)
+    assert all(torch.equal(a, b) for a, b in
+               zip(races._bc_races_cuda(*args, plan=plan), races.bc_races_plain(*args)))
+    for with_same in (True, False):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(races.fused_races(q, xyz, ring, mask, with_same, SPAN),
+                       races.fused_races_plain(q, xyz, ring, mask, with_same, SPAN)))
+    for k in (5, 33):
+        got = (knn._knn_cuda(q, xyz, mask, k, plan=plan) if k <= 32
+               else knn.knn(q, xyz, mask, k))
+        want = knn.knn_plain(q, xyz, mask, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_degeneracy_projector_beyond_cusolver_batch(cuda):
+    # cuSOLVER's batched eigh rejects 32768 or more matrices in one call:
+    # the projector solves them in pieces, each as a call of its own would
+    from cooper_mapper_torch.ops import gauss_newton as gn
+
+    rng = np.random.RandomState(24)
+    A = rng.randn(40000, 6, 6).astype(np.float32)
+    JtJ = torch.from_numpy(A @ A.transpose(0, 2, 1) * 50.0).to(cuda)
+    n = gn.EIGH_BATCH
+    evals, V = gn.eigh(JtJ)
+    for s in (slice(0, n), slice(2 * n, 40000)):
+        e1, V1 = torch.linalg.eigh(JtJ[s])
+        assert torch.equal(evals[s], e1) and torch.equal(V[s], V1)
+    P, deg = gn.degeneracy_projector(JtJ, 100.0)
+    P1, deg1 = gn.degeneracy_projector(JtJ[:n], 100.0)
+    assert P.shape == (40000, 6, 6) and torch.isfinite(P).all() and torch.equal(deg[:n], deg1)
+    # the projector's batched product may take another cuBLAS plan at
+    # another batch size: equal to f32 rounding, not bit for bit
+    torch.testing.assert_close(P[:n], P1, rtol=0, atol=1e-5)

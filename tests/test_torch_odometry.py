@@ -123,13 +123,45 @@ def test_per_problem_references_and_single_solve():
     np.testing.assert_allclose(x1.numpy(), xt[0].numpy(), atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def knob_problem():
+    """A yawing pair at B = 2 and the port's solve of it at the default config."""
+    B = 2
+    prev, cur = _features(_pose(x=-0.2, y=0.03, z=0.3, yaw=-0.04))
+    x0 = (0.02 * np.random.RandomState(4).randn(B, 6)).astype(np.float32)
+    tc = lambda c: bridge.cloud(c, "cpu")
+    port = (_tile_t(tc(cur.sharp), B), _tile_t(tc(cur.flat), B), tc(prev.less_sharp),
+            tc(prev.less_flat), torch.from_numpy(x0))
+    jax_args = (_tile_j(cur.sharp, B), _tile_j(cur.flat, B), prev.less_sharp, prev.less_flat,
+                jnp.asarray(x0))
+    return port, jax_args, todo.batch_odometry_solve(*port, TOdo())
+
+
 @pytest.mark.parametrize("field,value", [("nn_query_chunk", 256), ("kernel_backend", "dense"),
                                          ("nn_precision", "high"), ("unroll_iters", True)])
-def test_parity_only_options_raise(field, value):
-    # fields copied for parity with the JAX config, with no meaning in the port
+def test_jax_knobs_match_jax(knob_problem, field, value):
+    # the JAX package's memory, dispatch, precision and loop knobs: none
+    # changes the port's result (the query chunk only cuts the plain
+    # version's distance tile; the products stay f32), so the port at the
+    # non-default value equals its default run bit for bit, and the JAX
+    # package at the same value (on the CPU every value gives its default's
+    # distances) within SOLVE_ATOL
+    port, jax_args, (x_default, st_default) = knob_problem
+    xt, stt = todo.batch_odometry_solve(*port, TOdo(**{field: value}))
+    xj, stj = jodo.batch_odometry_solve(*jax_args, JOdo(**{field: value}))
+    assert torch.equal(xt, x_default) and torch.equal(stt.converged, st_default.converged)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=SOLVE_ATOL)
+    np.testing.assert_array_equal(stt.converged.numpy(), np.asarray(stj.converged))
+
+
+@pytest.mark.parametrize("field,value", [("nn_query_chunk", -1), ("kernel_backend", "cuda"),
+                                         ("nn_precision", "garbage")])
+def test_jax_knob_values_jax_rejects_raise(field, value):
+    # values outside what the JAX package accepts (its kernel_backend names,
+    # jax.lax.Precision's strings, a chunk >= 0) raise before any work
     clouds = [TCloud(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool),
                      torch.zeros(8, dtype=torch.int32), torch.zeros(8))] * 4
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(ValueError, match=field):
         todo.odometry_solve(*clouds, torch.zeros(6), TOdo(**{field: value}))
 
 

@@ -298,11 +298,18 @@ def test_gate_rejects_garbage_like_jax(pose_offset_scene):
     assert not t["success"] and not bool(res_j.success)
 
 
-@pytest.mark.parametrize("cfg", [dict(cfg=TSM(kernel_backend="pallas"))], ids=["kernel_backend"])
-def test_unported_options_raise(pose_offset_scene, cfg):
+@pytest.mark.parametrize("backend", ["pallas"], ids=["kernel_backend"])
+def test_kernel_backend_matches_jax(pose_offset_scene, backend):
+    # the JAX package's dispatch knob names the same search (the tensors'
+    # device picks the path): the port at a non-default value against the
+    # JAX package at the same value (on the CPU its dense path) within the
+    # file's tolerances; a name the JAX package does not know raises
     clouds, x0, _, _ = pose_offset_scene
-    with pytest.raises(NotImplementedError):
-        tsm.scan_match(*map(_cloud, clouds), _t(x0), **cfg)
+    res_j = jsm.scan_match(*clouds, jnp.asarray(x0), JSM(kernel_backend=backend, **CFG_SM))
+    res_t = tsm.scan_match(*map(_cloud, clouds), _t(x0), TSM(kernel_backend=backend, **CFG_SM))
+    _compare(res_t, res_j)
+    with pytest.raises(ValueError, match="kernel_backend"):
+        tsm.scan_match(*map(_cloud, clouds), _t(x0), TSM(kernel_backend="cuda", **CFG_SM))
 
 
 def test_parity_mode_matches_jax(pose_offset_scene):
@@ -386,3 +393,19 @@ def test_bench_problem_batch_solve_matches_jax(bench_problem):
     t = _compare(res_t, res_j)
     assert t["success"].all() and np.asarray(res_j.success).all()
     assert t["x"].shape == (B, 6)
+
+
+def test_bench_problem_batch_solve_at_knn8_matches_jax(bench_problem):
+    # ScanMatchConfig(knn=8): tests/test_io.py's k, a neighbourhood the card
+    # serves from its register lists like 5 and 10
+    B = 2
+    x0 = (0.02 * np.random.RandomState(8).randn(B, 6)).astype(np.float32)
+    tile_j = lambda c: jax.tree.map(lambda a: jnp.broadcast_to(a[None], (B,) + a.shape), c)
+    corner, surf, ref_c, ref_s = bench_problem
+    res_j = jsm.batch_scan_match(tile_j(corner), tile_j(surf), ref_c, ref_s,
+                                 jnp.asarray(x0), JSM(knn=8))
+    res_t = tsm.batch_scan_match(chip_smoke.tile(_cloud(corner), B),
+                                 chip_smoke.tile(_cloud(surf), B), _cloud(ref_c),
+                                 _cloud(ref_s), _t(x0), TSM(knn=8))
+    t = _compare(res_t, res_j)
+    assert t["success"].all() and t["x"].shape == (B, 6)
