@@ -166,7 +166,7 @@ Phases, each announced on its own line as it starts:
    at the default 50 iterations and ``"cg"`` at 64 CG iterations, then CG on
    build_graph(4096): the final cost finite and below 0.2 of the initial one,
    a repeat bit-identical, node 0 unchanged; ms per optimize and LM
-   iterations/s (best and median of 5), the dense-vs-CG position
+   iterations/s (best and median of 2), the dense-vs-CG position
    difference, the peak memory;
 19. the pose-graph LM on build_graph(64, loop_every=16), dense and CG, on
    the card and the CPU: poses within 2e-3 and the same final lambda (where
@@ -335,13 +335,22 @@ Phases, each announced on its own line as it starts:
    ``demo_mapping``, ``demo_localization``, ``demo_graph_slam`` and
    ``demo_wander`` main() on the card at their defaults: every pose of every
    pipeline finite; their ATEs printed (the JAX demos gate none);
-41. (run after 39, before 40's summary) the port's reach against the JAX
-   package's: the k-NN bit for bit with ``knn_plain`` at every k of 1..32,
-   33, 64, 100 and 257 (the register lists up to 32, the select route
-   above) on the scan-to-map surf search (64 x 2048 vs 5888), a per-problem
-   map, the B = 1 split shape (mapping sweep 4's surf search, 1 x 8192 vs
-   65536) and a tie-heavy integer grid, with device ms, plain, library and
-   bound at k = 8, 16, 32, 33, 64, 100 and 257 on the first and third;
+41. (run after 39, while 37-38's CPU runs finish, before 40's summary;
+   the phase headers carry the seconds since the start) the port's reach
+   against the JAX package's: the k-NN bit for bit with ``knn_plain`` at
+   every k of 1..32,
+   33, 63, 64, 65, 100, 127, 128, 257, 1000, 1024 and 1025 (the register
+   lists up to 32, the warp select to 1024, the radix select above; and
+   k = M on the grid) on the scan-to-map surf search (64 x 2048 vs 5888),
+   a per-problem map, the B = 1 split shape (mapping sweep 4's surf search,
+   1 x 8192 vs 65536) and a tie-heavy integer grid, with device ms, plain,
+   library and bound at k = 8, 16, 32, 33, 64, 100 and 257 on the first and
+   third, the select route's beside the radix design's (PERF.md);
+   ``merge_first_k`` bit for bit with ``merge_first_k_plain`` and with the
+   one scan on the chunk lists of the two B = 1 sweep searches as their
+   plan splits them (1 x 2048 vs 32768, S = 66; 1 x 8192 vs 65536, S = 17;
+   k = 5), with its ms, device ms, plain, library (``topk`` over the S x k
+   candidates) and byte bound;
    every race kernel (nn1, nn1_masked "adj" and "same", bc_races,
    fused_races with and without race B) and both k-NN routes (k = 5, 40)
    at B = 65,537 against a shared and a per-problem reference, bit for bit,
@@ -373,7 +382,10 @@ Phases, each announced on its own line as it starts:
    in phase 41's main paths and its ``wide_batch`` its B = 65,537 times;
    the knn row's ``every_k`` its times at k = 8, 16, 32; a ``knn_select``
    row, the select route, at k = 33 with 64, 100, 257 and the split shape
-   under ``more_shapes``), then the result line.
+   under ``more_shapes``; a ``merge_first_k`` row, the split k-NN's merge,
+   its launches the split route drive's k-NN merges (phase 9), its numbers
+   phase 41's at S = 66 with S = 17 under ``more_shapes``), then the result
+   line.
 
 Any failed check raises, so the process exits non-zero and prints no result.
 There is no CPU fallback: without a card the script stops at once.
@@ -436,7 +448,14 @@ GT_TOL = 0.3                   # tests/test_pipeline.py::TestFusedSteps
 LOC_OFFSET_X, LOC_SWEEPS = 0.8, 6
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print one line; a phase's header ("[N] ...") also gets the seconds
+    since the script started, so that the log shows where its time goes."""
+    if msg[:1] == "[" and msg[1:msg.find("]")].isdigit():
+        msg = f"{msg} (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -559,7 +578,8 @@ def device_ms(fn, names, reps=20, tries=3):
     ``torch.profiler`` over ``reps`` calls after one warm-up.  A trace that
     lost events (a kernel seen a number of times that is not a multiple of
     ``reps``, or none of the named kernels) is taken again, up to ``tries``
-    times."""
+    times.  Where no trace saw a named kernel, the first group's ms is None:
+    not measured, never 0."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -578,12 +598,21 @@ def device_ms(fn, names, reps=20, tries=3):
     ev = [e for e in every if any(k in e.name for k in names)]
     ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
     by_kernel = {k: ms([e for e in ev if k in e.name]) for k in names}
-    return ms(ev), len(ev) / reps, ms(every), {k: v for k, v in by_kernel.items() if v}
+    if not ev:
+        log(f"    device_ms: the profiler saw none of {names} in {tries} traces: not measured")
+    return (ms(ev) if ev else None), len(ev) / reps, ms(every), \
+        {k: v for k, v in by_kernel.items() if v}
+
+
+def fmt_ms(x, digits=4):
+    """A time for the log: ``digits`` decimals, or "not measured" for None."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
 
 
 # the port's own search kernels, by the names the profiler shows
 OWN_KERNELS = ("knn_kernel", "bc_races_kernel", "nn1_kernel", "masked_kernel",
-               "fused_races_kernel", "merge_first_k", "merge_min")
+               "fused_races_kernel", "merge_first_k", "merge_min", "knn_select_kernel",
+               "knn_radix_kernel")
 
 
 def compare_race(label, kernel_out, plain_out):
@@ -959,7 +988,7 @@ def knn_times(tag, q, ref, err, k=KNN_K, reps=20, device_names=None):
     dev = ""
     if device_names:
         row["device_ms"], _, _, _ = device_ms(call, device_names, reps=reps)
-        dev = f", device {row['device_ms']:.4f} ms"
+        dev = f", device {fmt_ms(row['device_ms'])} ms"
     log(f"    knn {tag} k={k} [{B}x{Q} vs {M}, {valid} valid, {pairs:.3g} valid pairs]: kernel "
         f"{ms:.4f} ms{dev}, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -1152,10 +1181,10 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
         out[label] = row
         log(f"    fused_races {label} [{row['shape']}, {valid} valid, {pairs:.3g} valid pairs, "
             f"G={G} lanes per query, {qpt} per thread, blocks {-(-Q // (128 // G * qpt)) * B}]: kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f}; every kernel of the call {dev_all:.4f}), "
+            f"{ms:.4f} ms (device {fmt_ms(dev_ms)}; every kernel of the call {dev_all:.4f}), "
             f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the split route's device ms "
-            f"{split_ms:.4f} ({split_by}; with the ring gather {split_all:.4f})")
+            f"{fmt_ms(split_ms)} ({split_by}; with the ring gather {split_all:.4f})")
     log(f"    the split kernels at the single-stream shapes, M split across blocks "
         f"({RACE_TIMES})")
     q, ref, a_err, d_err, ring_a, ia = single["single-stream surf"]
@@ -1228,7 +1257,7 @@ def merge_phase(single):
         rows[f"merge {tag}"] = row = dict(
             shape=f"{searches}x{S}x{n}", err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=t_bytes, bound_by="bytes")
-        log(f"    merge_min {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+        log(f"    merge_min {tag}: kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
             f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {t_bytes:.5f} ms (bytes)")
     return rows
 
@@ -1855,7 +1884,7 @@ def reduced_pipeline_card_vs_cpu_phase(device):
 
 # Pose-graph backend: benchmarks/bench_pose_graph.py's problem, the loop drive
 # of tests/test_graph_pipeline.py at full width
-PG_NODES, PG_BIG_NODES, PG_PCG_ITERS, PG_REPS = 1024, 4096, 64, 5
+PG_NODES, PG_BIG_NODES, PG_PCG_ITERS, PG_REPS = 1024, 4096, 64, 2
 PG_COST_RATIO = 0.2          # tests/test_pose_graph.py::test_cg_scales_to_large_graph
 LOOP_SWEEPS, LOOP_NOISE, LOOP_SEED = 52, 0.03, 7
 # tests/test_graph_pipeline.py::_cfg's score_threshold.  The score sums one
@@ -2192,7 +2221,7 @@ def icp_phase(pipe, device):
                    merges=merges, where="ICP of the loop closure")
     nn1_row["device_ms"] = device_ms(lambda: races.nn1(q, ref_surf.xyz, ref_surf.mask),
                                      ("nn1_kernel", "merge_min"))[0]
-    log(f"    nn1 at the ICP shape: device {nn1_row['device_ms']:.4f} ms per call (the kernel "
+    log(f"    nn1 at the ICP shape: device {fmt_ms(nn1_row['device_ms'])} ms per call (the kernel "
         "and its merge)")
     leaf = ScanMatchConfig().local_surf_leaf
     surf_ds, ref_ds = voxel_downsample(kf.surf, leaf), voxel_downsample(ref_surf, leaf)
@@ -3035,7 +3064,8 @@ def convert_phase(quick, tally, device):
                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                plan=list(plan), where="phase 31, the offline converter")
     log(f"    knn converter [1x{n} vs {n}, k = {CONVERT_K}, {pairs:.3g} valid pairs]: kernel "
-        f"{ms:.3f} ms, device {dev_ms:.3f} ms ({per_call:g} launches per call, {by_kernel}); "
+        f"{ms:.3f} ms, device {fmt_ms(dev_ms, 3)} ms ({per_call:g} launches per call, "
+        f"{by_kernel}); "
         f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); on {CONVERT_TIMED} queries: plain "
         f"{plain_ms:.3f} ms, library (cdist, topk(10)) {library_ms:.3f} ms")
 
@@ -3207,7 +3237,7 @@ PAR_PIPE_TOL = 2.5e-2                    # tests/test_sharded_map.py::TestSharde
 KEEPS = (1.0, 1.0, 0.6, 0.6, 0.25, 0.25)  # TestBucketedOdometry's keep fractions
 BUCKET_GRANULE, BUCKET_CHUNK = 512, 256   # benchmarks/bench_hetero.py's defaults
 BUCKET_TOL, BUCKET_ITERS = 2e-4, 8        # TestBucketedOdometry's bound and iterations
-PAR_RANKS, PAR_MAP_SWEEPS, PAR_LM_REPS = 2, 6, 3
+PAR_RANKS, PAR_MAP_SWEEPS, PAR_LM_REPS = 2, 6, 1
 # seconds: phase 36's ranks in all, and a collective's wait for the other rank
 PAR_TIMEOUT, PAR_GROUP_TIMEOUT = 600.0, 300.0
 
@@ -4175,8 +4205,18 @@ def scripts_phase(root, tally, device):
 # the TPU kernel takes (its k is static, any 1 <= k <= M): the register
 # lists up to 32, the select route above; every search kernel at more than
 # 65,535 problems (the JAX package's vmap runs any batch).
-COVER_KS = tuple(range(1, 33)) + (33, 64, 100, 257)
+COVER_KS = tuple(range(1, 33)) + (33, 63, 64, 65, 100, 127, 128, 257, 1000, 1024, 1025)
 COVER_TIMED_KS = (8, 16, 32, 33, 64, 100, 257)
+# the select route's device ms before its redesign (a block per query, radix
+# select then sort; PERF.md section 6), beside this run's: 64 x 2048 vs 5888
+# at k = 33 / 64 / 100 / 257, and 1 x 8192 vs 65536 over k = 33..257
+RADIX_DEVICE_MS = {"scan-to-map surf": {33: 5.6597, 64: 5.7687, 100: 6.1241, 257: 7.8328},
+                   "split B=1": {k: "8.0070-8.2706" for k in (33, 64, 100, 257)}}
+# merge_first_k's device ms per launch before its redesign (a thread per
+# query), by S at k = 5: inside the mapping sweep's k-NN at n = 2048, S = 66
+# and n = 8192, S = 17 (time_search_kernels.py's merge_first_k kind, PERF.md
+# section 6)
+SERIAL_MERGE_DEVICE_MS = {66: 0.0166, 17: 0.0059}
 WIDE_B = 65537                      # one problem past CUDA's grid-y cap
 WIDE_Q, WIDE_M, WIDE_M_PER = 128, 512, 64
 WIDE_KNN_KS = (5, 40)               # a register-list k and a select-route k
@@ -4199,12 +4239,13 @@ def tie_heavy(device, B=2, Q=300, M=1300, seed=5):
 
 def every_k_check(cases):
     """``knn.knn`` against ``knn_plain`` at every k of COVER_KS on each case,
-    bit for bit (indices and distances); every route."""
+    bit for bit (indices and distances); every route.  A case's k_equals_m
+    adds k = M."""
     from cooper_mapper_torch.ops import knn
 
-    for label, q, r, m in cases:
+    for label, q, r, m, *k_equals_m in cases:
         bad = []
-        for k in COVER_KS:
+        for k in COVER_KS + ((r.shape[-2],) if k_equals_m else ()):
             if k > r.shape[-2]:
                 continue
             got = knn.knn(q, r, m, k)
@@ -4212,8 +4253,9 @@ def every_k_check(cases):
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 bad.append(k)
         torch.cuda.synchronize()
-        log(f"    knn {label} {tuple(q.shape)} vs {tuple(r.shape)}: k = 1..32, 33, 64, 100, "
-            f"257 against knn_plain, bit for bit: {'all equal' if not bad else bad}")
+        log(f"    knn {label} {tuple(q.shape)} vs {tuple(r.shape)}: k = 1..32, "
+            f"{', '.join(map(str, COVER_KS[32:]))}{' and M' if k_equals_m else ''} against "
+            f"knn_plain, bit for bit: {'all equal' if not bad else bad}")
         if bad:
             fail(f"knn {label} disagrees with knn_plain at k = {bad}")
 
@@ -4360,6 +4402,61 @@ def classify_check(device):
     return out
 
 
+def knn_chunk_lists(q, ref, S, k):
+    """The chunk lists [S, n, k] that the k-NN split into S chunks writes
+    before merge_first_k (B = 1, shared reference): knn_plain over each
+    chunk, indices offset, a chunk of fewer than k points ending in (+inf,
+    0), (+inf, 1), ... as the kernel's list starts."""
+    from cooper_mapper_torch.ops import knn
+
+    M = ref.xyz.shape[0]
+    L = -(-M // S)
+    pd = torch.full((S, q.shape[1], k), float("inf"), device=q.device)
+    pi = torch.zeros((S, q.shape[1], k), dtype=torch.int32, device=q.device)
+    for z in range(S):
+        a, b = z * L, min(M, (z + 1) * L)
+        kk = min(k, b - a)
+        i, d = knn.knn_plain(q, ref.xyz[a:b].contiguous(), ref.mask[a:b].contiguous(), kk)
+        pd[z, :, :kk], pi[z, :, :kk] = d[0], i[0] + a
+        pi[z, :, kk:] = torch.arange(k - kk, dtype=torch.int32, device=q.device)
+    return pd, pi
+
+
+def merge_first_k_check(split_inputs, k=KNN_K):
+    """merge_first_k against merge_first_k_plain and the one scan, bit for
+    bit, on the chunk lists of the B = 1 sweep searches as their plan splits
+    them; its times.  Returns the kernels-line rows, S = 66 first."""
+    from cooper_mapper_torch.ops import knn, races
+
+    rows = []
+    for tag in ("corner", "surf"):
+        q, _, ref = split_inputs[tag]
+        n, M = q.shape[1], ref.xyz.shape[0]
+        S = races._split_plan(1, n, M, races.sm_count(q.device), knn_block_queries(k))[0]
+        pd, pi = knn_chunk_lists(q, ref, S, k)
+        got = knn.merge_first_k(pd, pi)
+        err = compare_exact(f"merge_first_k S={S} n={n} k={k} vs merge_first_k_plain", got,
+                            knn.merge_first_k_plain(pd, pi))
+        one = knn.knn_plain(q, ref.xyz, ref.mask, k)
+        compare_exact(f"merge_first_k S={S} n={n} k={k} vs the one scan", got,
+                      (one[0][0], one[1][0]))
+        call = lambda: knn.merge_first_k(pd, pi)
+        cand = pd.permute(1, 0, 2).reshape(n, S * k)
+        row = dict(shape=f"{S}x{n}x{k}", S=S, err=err, ms=time_ms(call, reps=20),
+                   device_ms=device_ms(call, ("merge_first_k",))[0],
+                   plain_ms=time_ms(lambda: knn.merge_first_k_plain(pd, pi), reps=3, warmup=1),
+                   library_ms=time_ms(lambda: cand.topk(k, largest=False), reps=3, warmup=1),
+                   bound_ms=(S * n * k * 8 + n * k * 8) / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        log(f"    merge_first_k S={S} n={n} k={k}: kernel {row['ms']:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])}; the thread-per-query design's "
+            f"{SERIAL_MERGE_DEVICE_MS.get(S, 'not measured')}), "
+            f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.5f} ms (bytes)")
+        rows.append(row)
+    return rows
+
+
 def coverage_phase(scan, split_inputs, bench, device):
     """[41] The port's reach against the JAX package's: the k-NN at every k
     on both routes, bit for bit, and its times; every search kernel at
@@ -4375,17 +4472,22 @@ def coverage_phase(scan, split_inputs, bench, device):
     q1, _, ref1 = split_inputs["surf"]
     nb = 8
     ref_sb = tile(map_s, nb)
-    log("[41] coverage: the k-NN at every k (register lists k <= 32, the select route "
-        "above), every search kernel at B = 65,537, and their main paths")
+    log("[41] coverage: the k-NN at every k (register lists k <= 32, the select routes "
+        "above), its merge, every search kernel at B = 65,537, and their main paths")
     every_k_check([("scan-to-map surf", qs, map_s.xyz, map_s.mask),
                    ("per-problem map", qs[:nb].contiguous(), ref_sb.xyz, ref_sb.mask),
                    ("split B=1 (mapping sweep 4's surf)", q1, ref1.xyz, ref1.mask),
-                   ("tie-heavy integer grid", *tie_heavy(device))])
+                   ("tie-heavy integer grid", *tie_heavy(device), True)])
     log(f"    times at k = {COVER_TIMED_KS} ({KNN_TIMES}, topk(k))")
     names = ("knn_kernel", "merge_first_k", "knn_select_kernel")
     timed = {tag: [knn_times(tag, q, ref, 0.0, k=k, reps=10, device_names=names)
                    for k in COVER_TIMED_KS]
              for tag, q, ref in (("scan-to-map surf", qs, map_s), ("split B=1", q1, ref1))}
+    for tag, rows in timed.items():
+        log(f"    select route device ms at {tag}, this run against the radix design's: "
+            + "; ".join(f"k={v['k']} {fmt_ms(v['device_ms'])} ({RADIX_DEVICE_MS[tag][v['k']]})"
+                        for v in rows if v["k"] > 32))
+    merges = merge_first_k_check(split_inputs)
     wide = wide_batch_check(device)
 
     log("    main paths at the new reach, every launch counter at 0 first")
@@ -4402,7 +4504,7 @@ def coverage_phase(scan, split_inputs, bench, device):
             fail(f"phase 41's main paths launched no {k}")
     seconds = time.perf_counter() - t_start
     log(f"    phase 41 {seconds:.1f} s")
-    return dict(timed=timed, wide=wide, odo=odo, sm_dx=sm_dx, labels=labels,
+    return dict(timed=timed, merge_rows=merges, wide=wide, odo=odo, sm_dx=sm_dx, labels=labels,
                 launches=launches, merges=read_merges(), seconds=seconds)
 
 
@@ -4521,13 +4623,16 @@ def main():
             # the CPU runs of the first sweeps, beside phase 39
             children = {s: offline_cpu_start(s, offline[s]) for s in OFFLINE_SENSORS}
             script_run = scripts_phase(root, scripts, device)
+            # phase 41 on the card while the CPU runs finish
+            t41 = time.perf_counter()
+            cover = coverage_phase((corner, surf, map_c, map_s, x0_sm), split_knn,
+                                   (sharp1, flat1, ref_c, ref_s), device)
+            t41 = time.perf_counter() - t41
             for s in OFFLINE_SENSORS:
                 offline[s]["cpu"] = offline_cpu_check(s, offline[s], children[s])
         finally:
             stop_children(children.values())
-    scripts_s = time.perf_counter() - t37
-    cover = coverage_phase((corner, surf, map_c, map_s, x0_sm), split_knn,
-                           (sharp1, flat1, ref_c, ref_s), device)
+    scripts_s = time.perf_counter() - t37 - t41
 
     sources = {"nn1": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "races.cu"),
                "nn1_masked": ("cooper_mapper_tpu/ops/pallas/nn1.py:173", "races.cu"),
@@ -4592,6 +4697,15 @@ def main():
                  "more_shapes": select[1:],
                  "coverage": dict(launches=cover["launches"]["knn_select"], merges=0),
                  "wide_batch": cover["wide"]["knn k=40"]})
+    # the split k-NN's merge: launched once by each k-NN call that splits M
+    merge_rows = [fields(v) for v in cover["merge_rows"]]
+    rows.append({"name": "merge_first_k", "route": "cuda",
+                 "source": "cooper_mapper_torch/csrc/split.cuh",
+                 # no TPU counterpart: the merge of the split search of knn_stream.py:187
+                 "replaces": "cooper_mapper_tpu/ops/pallas/knn_stream.py:187",
+                 "launches": ss_launches["merges"]["knn"], **merge_rows[0],
+                 "more_shapes": merge_rows[1:],
+                 "coverage": dict(launches=cover["merges"]["knn"], merges=0)})
     pg_stat = lambda r: (f"{r['solver']} n={r['n']} {r['iters_per_s'][0]:.2f} / "
                          f"{r['iters_per_s'][1]:.2f} LM iterations/s, "
                          f"{min(r['ms']):.1f} ms per optimize")
@@ -4667,7 +4781,8 @@ def main():
         + f"; selftest {script_run['selftest']}; demos "
         + "; ".join(f"{k} {script_run[k]['shown']}" for k in
                     ("demo_mapping", "demo_localization", "demo_graph_slam", "demo_wander"))
-        + f"; phases 37-39 {scripts_s:.1f} s with the CPU runs' wait; coverage: the k-NN "
+        + f"; phases 37-39 {scripts_s:.1f} s with the CPU runs' wait (phase 41 inside it, "
+        f"not counted); coverage: the k-NN "
         f"bit for bit at every k of {COVER_KS[0]}..{COVER_KS[-1]} listed, every search kernel "
         f"at B={WIDE_B}, batch_odometry_solve at B={WIDE_B} {cover['odo']['sps']:.1f} solves/s "
         f"(rows 0..{BATCH - 1} |dx| {cover['odo']['dx']:.3g}), scan-to-map knn=8 card vs CPU "

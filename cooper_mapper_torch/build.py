@@ -213,14 +213,17 @@ def library() -> ctypes.CDLL:
         lib.cooper_knn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.cooper_knn_block_queries.argtypes = [I]
         lib.cooper_knn_register_max_k.argtypes = []
-        lib.cooper_knn_select.argtypes = [P, P, P, P, P, P, I, I, I, I, I, LL, P]
+        lib.cooper_merge_first_k.argtypes = [P, P, P, P, LL, I, I, P]
+        lib.cooper_knn_select.argtypes = [P, P, P, P, P, P, I, I, I, I, I, LL, I, P]
+        lib.cooper_knn_select_warp_max_k.argtypes = []
         lib.cooper_knn_select_keys.argtypes = [I]
         lib.cooper_knn_select_smem_keys.argtypes = []
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
                    lib.cooper_fused_races, lib.cooper_fused_block_threads,
                    lib.cooper_merge_min, lib.cooper_knn, lib.cooper_nn1_block_queries,
                    lib.cooper_bc_races_block_queries, lib.cooper_knn_block_queries,
-                   lib.cooper_knn_register_max_k, lib.cooper_knn_select,
+                   lib.cooper_knn_register_max_k, lib.cooper_merge_first_k,
+                   lib.cooper_knn_select, lib.cooper_knn_select_warp_max_k,
                    lib.cooper_knn_select_keys, lib.cooper_knn_select_smem_keys):
             fn.restype = ctypes.c_int
         _lib = lib

@@ -237,9 +237,7 @@ int launch_knn_slab(const float* q, const float* r, const float* rn, float* out_
       q, r, rn, part_d, part_i, Q, M, r_bstride, L, n * K);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  merge_first_k<K><<<merge_grid(n, 1), SEARCH_THREADS, 0, stream>>>(
-      part_d, part_i, out_d, out_i, n, S);
-  return (int)cudaGetLastError();
+  return launch_merge_first_k<K>(part_d, part_i, out_d, out_i, n, S, stream);
 }
 
 template <int K>
@@ -272,6 +270,22 @@ int launch_knn_in(int k, const float* q, const float* r, const float* rn, float*
                        stream);
 }
 
+using MergeLaunch = decltype(&launch_merge_first_k<1>);
+
+template <int LO, std::size_t... I>
+constexpr std::array<MergeLaunch, sizeof...(I)> merge_launches(std::index_sequence<I...>) {
+  return {{&launch_merge_first_k<LO + (int)I>...}};
+}
+
+// launch_merge_first_k<k> for LO <= k <= HI (the caller checks the range)
+template <int LO, int HI>
+int launch_merge_in(int k, const float* pd, const int* pi, float* out_d, int* out_i, long long n,
+                    int S, cudaStream_t stream) {
+  static constexpr std::array<MergeLaunch, HI - LO + 1> table =
+      merge_launches<LO>(std::make_index_sequence<HI - LO + 1>{});
+  return table[k - LO](pd, pi, out_d, out_i, n, S, stream);
+}
+
 }  // namespace
 
 // The larger k of the register lists, each range instantiated in a
@@ -283,3 +297,8 @@ int knn_lists_17_24(int k, const float* q, const float* r, const float* rn, floa
 int knn_lists_25_32(int k, const float* q, const float* r, const float* rn, float* out_d,
                     int* out_i, float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
                     int S, int L, cudaStream_t stream);
+// merge_first_k on its own for the same ranges of k (launch_merge_in's arguments)
+int merge_lists_17_24(int k, const float* pd, const int* pi, float* out_d, int* out_i,
+                      long long n, int S, cudaStream_t stream);
+int merge_lists_25_32(int k, const float* pd, const int* pi, float* out_d, int* out_i,
+                      long long n, int S, cudaStream_t stream);

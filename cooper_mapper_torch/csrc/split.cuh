@@ -9,11 +9,13 @@
 // index ranges is the merge of the per-range results, taken in (d, j) order.
 // So block z scans the chunk [z*L, min(M, (z+1)*L)) and writes its result to
 // a scratch buffer [S, n] (or [S, n, K]), and a second kernel merges the S
-// results of each query.  merge_first_k takes the chunks in order with the
-// scan's strict "<": chunks come in increasing index order and each chunk's
-// list is ascending in (d, j), so every candidate the merge meets has a
-// larger index than any listed entry of equal distance, and "<" keeps the
-// smaller index, exactly as one scan over all of M does.  merge_min needs no
+// results of each query.  The chunk-order merge with the scan's strict "<"
+// is one scan's result: chunks come in increasing index order and each
+// chunk's list is ascending in (d, j), so every candidate the merge meets
+// has a larger index than any listed entry of equal distance, and "<" keeps
+// the smaller index.  merge_first_k needs no order: it keeps the K smallest
+// 64-bit (d, j) keys of the chunks' finite entries, which is that list
+// whatever the grouping, since no two keys are equal.  merge_min needs no
 // order at all: it takes the lexicographic (d, z) minimum of the S pairs,
 // with the scan's start (+inf, 0) as a chunk z = -1, and every chunk's index
 // lies above every earlier chunk's, so a tie in d goes to the smaller index
@@ -87,35 +89,242 @@ __device__ __forceinline__ void chunk_of_block(int M, int L, int& c0, int& c1) {
   c1 = min(M, c0 + L);
 }
 
-// Merge S first-K lists [S, n, K] into out [n, K]: one thread per query,
-// chunks in order, from (+inf, 0..K-1) as the scan starts.
+// ---------------------------------------------------------------------------
+// 64-bit keys: (ordered bits of d) << 32 | j.  Unsigned order of the keys is
+// the lexicographic (d, j) order, no two points' keys are equal, and NO_KEY
+// (all ones) lies above every key of a finite d.  d is never -0 here: the
+// distance's last operation adds |r|^2 >= +0.
+// ---------------------------------------------------------------------------
+
+using Key = unsigned long long;
+constexpr Key NO_KEY = ~0ull;
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// The float's bits as an unsigned that orders as the float does (negative
+// values below positive ones), and back.
+__device__ __forceinline__ unsigned ordered_bits(float d) {
+  const unsigned u = __float_as_uint(d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered_bits(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ Key make_key(float d, int j) {
+  return ((Key)ordered_bits(d) << 32) | (unsigned)j;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int k) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  return p;
+}
+
+// log2 of a power of two.  The networks below step through their strides
+// by a counter and 1 << counter, so that every loop fully unrolls and every
+// register index is a constant (a loop that doubles its variable need not
+// unroll, and its register arrays would go to local memory).
+__host__ __device__ constexpr int log2_of(int p) {
+  int l = 0;
+  while ((1 << l) < p) ++l;
+  return l;
+}
+
+// 4-byte asynchronous copies, global to a 32-bit shared address (sm_80 and
+// later), and a 16-byte shared load from one.
+__device__ __forceinline__ void cp_async4(unsigned smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async16(unsigned smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ float4 lds128(unsigned smem) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(smem));
+  return v;
+}
+
+// Put key c into the ascending list a of K keys, dropping its last; the
+// caller has checked c < a[K-1].  Every slot is settled from the old list at
+// once (c < a[s] is monotone in s), as in insert_sorted.
 template <int K>
-__global__ void __launch_bounds__(SEARCH_THREADS)
-merge_first_k(const float* __restrict__ pd, const int* __restrict__ pi,
-              float* __restrict__ out_d, int* __restrict__ out_i, long long n, int S) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  float bd[K];
-  int bi[K];
+__device__ __forceinline__ void insert_key(Key (&a)[K], Key c) {
+  bool lt[K];
 #pragma unroll
-  for (int s = 0; s < K; ++s) { bd[s] = INFINITY; bi[s] = s; }
-  // unrolled so that several chunks' loads are in flight at once
-#pragma unroll 4
-  for (int z = 0; z < S; ++z) {
-    const long long o = ((long long)z * n + t) * K;
+  for (int s = 0; s < K; ++s) lt[s] = c < a[s];
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const float d = pd[o + s];
-      // the list is ascending: once an entry cannot enter, none after it can
-      if (!(d < bd[K - 1])) break;
-      insert_sorted<K>(bd, bi, d, pi[o + s]);
+  for (int s = K - 1; s > 0; --s) a[s] = lt[s - 1] ? a[s - 1] : (lt[s] ? c : a[s]);
+  a[0] = lt[0] ? c : a[0];
+}
+
+// Sort the bitonic sequence c[0..P) ascending: the half-cleaners of a
+// bitonic merge, P a power of two, every index a constant.
+template <int P>
+__device__ __forceinline__ void bitonic_clean(Key (&c)[P]) {
+#pragma unroll
+  for (int l = log2_of(P) - 1; l >= 0; --l) {
+    const int s = 1 << l;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (i & s) continue;
+      const Key x = c[i], y = c[i + s];
+      c[i] = y < x ? y : x;
+      c[i + s] = y < x ? x : y;
     }
   }
+}
+
+// merge_first_k's shape: MERGE_K_W threads per query, MERGE_K_THREADS per
+// block, chunks staged in rounds of up to MERGE_K_SMEM bytes (dynamic shared
+// memory, sized to the chunks of a round).
+constexpr int MERGE_K_W = 4, MERGE_K_THREADS = 64, MERGE_K_SMEM = 32768;
+
+// a = the K smallest keys of the ascending lists a and lane (lane ^ off)'s
+// a.  With both padded to P = pow2(K) by NO_KEY, c[i] = min(a[i], b[P-1-i])
+// holds the P smallest of the 2P and is bitonic (a ascending against b
+// descending); the half-cleaners sort it.  Positions where one side is
+// padding take the other side without a compare.
+template <int K>
+__device__ __forceinline__ void merge_first(Key (&a)[K], int off) {
+  constexpr int P = pow2_at_least(K);
+  Key c[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int jb = P - 1 - i;
+    const Key y = jb < K ? __shfl_xor_sync(FULL_WARP, a[jb], off) : NO_KEY;
+    c[i] = i < K ? (jb < K && y < a[i] ? y : a[i]) : y;
+  }
+  bitonic_clean<P>(c);
+#pragma unroll
+  for (int s = 0; s < K; ++s) a[s] = c[s];
+}
+
+// Merge S first-K lists [S, n, K] into out [n, K], to what the chunk-order
+// merge with strict "<" from (+inf, 0..K-1) gives.  A block serves QB =
+// MERGE_K_THREADS / W consecutive queries, W threads each, all W in one
+// warp (lane l of warp w: query w * 32/W + l % (32/W), thread l / (32/W)).
+// The block stages R chunks at a time of its queries' lists into shared
+// memory (R x QB x K values, each chunk's a contiguous run, every copy in
+// flight at once), then each thread takes every W-th staged chunk and keeps
+// the K smallest keys of its chunks' entries: its first chunk's list, sorted
+// already, is its list, and each later one is inserted in order until an
+// entry cannot enter (the lists are ascending; a NaN or +inf
+// distance never enters, as in the scan, so a chunk's (+inf, slot) fillers
+// never do).  The W threads of a query then merge their sorted lists
+// pairwise by shuffles (merge_first), log2(W) rounds.  The K smallest keys
+// of the union are the chunk-order merge's list: every chunk's indices lie
+// above every earlier chunk's, so (d, j) order is the order of (d,
+// arrival), whatever the grouping.  F < K finite entries end in (+inf, 0),
+// (+inf, 1), ...: the merge's untouched start slots.
+template <int K, int W>
+__global__ void __launch_bounds__(MERGE_K_THREADS, 1)
+merge_first_k(const float* __restrict__ pd, const int* __restrict__ pi,
+              float* __restrict__ out_d, int* __restrict__ out_i, long long n, int S, int R) {
+  constexpr int QW = 32 / W, QB = MERGE_K_THREADS / W;
+  constexpr int ROW = QB * K;                // one chunk's lists of the block's queries
+  extern __shared__ float4 merge_smem[];     // R x ROW distances, then R x ROW indices
+  float* sd = reinterpret_cast<float*>(merge_smem);
+  int* si = reinterpret_cast<int*>(sd + R * ROW);
+  const int lane = threadIdx.x & 31;
+  const int u = (threadIdx.x >> 5) * QW + lane % QW, p = lane / QW;
+  const long long q0 = (long long)blockIdx.x * QB;
+  const int nq = n - q0 < QB ? (int)(n - q0) : QB;
+  const unsigned sd0 = (unsigned)__cvta_generic_to_shared(sd);
+  const unsigned si0 = (unsigned)__cvta_generic_to_shared(si);
+  Key key[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) key[s] = NO_KEY;
+  bool first = true;
+  // 16-byte copies where every staged run starts and ends on 16 bytes
+  const bool wide = (n * K) % 4 == 0 && (nq * K) % 4 == 0 && ROW % 4 == 0 &&
+                    (((unsigned long long)pd | (unsigned long long)pi) & 15) == 0;
+  for (int z0 = 0; z0 < S; z0 += R) {
+    const int nz = S - z0 < R ? S - z0 : R;
+    if (wide) {
+      for (int e = 4 * threadIdx.x; e < nz * ROW; e += 4 * MERGE_K_THREADS) {
+        const int zz = e / ROW, off = e - zz * ROW;
+        if (off < nq * K) {
+          const long long g = ((long long)(z0 + zz) * n + q0) * K + off;
+          cp_async16(sd0 + 4 * e, pd + g);
+          cp_async16(si0 + 4 * e, pi + g);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < nz * ROW; e += MERGE_K_THREADS) {
+        const int zz = e / ROW, off = e - zz * ROW;
+        if (off < nq * K) {
+          const long long g = ((long long)(z0 + zz) * n + q0) * K + off;
+          cp_async4(sd0 + 4 * e, pd + g);
+          cp_async4(si0 + 4 * e, pi + g);
+        }
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (u < nq) {
+      for (int zz = p; zz < nz; zz += W) {
+        const float* d = sd + zz * ROW + u * K;
+        const int* j = si + zz * ROW + u * K;
+        if (first) {                           // sorted already: the thread's list
+          bool live = true;
+#pragma unroll
+          for (int s = 0; s < K; ++s) {
+            live = live && d[s] < INFINITY;
+            key[s] = live ? make_key(d[s], j[s]) : NO_KEY;
+          }
+          first = false;
+          continue;
+        }
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          const float ds = d[s];
+          if (!(ds < INFINITY)) break;
+          const Key c = make_key(ds, j[s]);
+          if (!(c < key[K - 1])) break;
+          insert_key<K>(key, c);
+        }
+      }
+    }
+    __syncthreads();   // the staged chunks are free for the next round
+  }
+#pragma unroll
+  for (int m = 0; m < log2_of(W); ++m) merge_first<K>(key, QW << m);
+  if (p != 0 || u >= nq) return;
+  const long long t = q0 + u;
+  int F = 0;
+#pragma unroll
+  for (int s = 0; s < K; ++s) F += key[s] != NO_KEY;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    out_d[t * K + s] = bd[s];
-    out_i[t * K + s] = bi[s];
+    const bool in = key[s] != NO_KEY;
+    out_d[t * K + s] = in ? from_ordered_bits((unsigned)(key[s] >> 32)) : INFINITY;
+    out_i[t * K + s] = in ? (int)(unsigned)key[s] : s - F;
   }
+}
+
+template <int K>
+int launch_merge_first_k(const float* pd, const int* pi, float* out_d, int* out_i, long long n,
+                         int S, cudaStream_t st) {
+  constexpr int QB = MERGE_K_THREADS / MERGE_K_W;   // queries per block
+  constexpr int ROW = QB * K;
+  constexpr int RMAX = MERGE_K_SMEM / (8 * ROW) > 0 ? MERGE_K_SMEM / (8 * ROW) : 1;
+  const int R = S < RMAX ? S : RMAX;
+  const unsigned blocks = (unsigned)((n + QB - 1) / QB);
+  merge_first_k<K, MERGE_K_W><<<blocks, MERGE_K_THREADS, 8 * R * ROW, st>>>(
+      pd, pi, out_d, out_i, n, S, R);
+  return (int)cudaGetLastError();
 }
 
 // Up to four minimum searches merged in one launch (blockIdx.y = search).
@@ -199,10 +408,6 @@ inline int launch_merge_min(const float* pd, const int* pi, MinOut out, long lon
   const dim3 grid((unsigned)((n + MERGE_QB - 1) / MERGE_QB), searches);
   merge_min<MERGE_QB, MERGE_WARPS><<<grid, 32 * MERGE_WARPS, 0, st>>>(pd, pi, out, n, S);
   return (int)cudaGetLastError();
-}
-
-inline dim3 merge_grid(long long n, int searches) {
-  return dim3((unsigned)((n + SEARCH_THREADS - 1) / SEARCH_THREADS), searches);
 }
 
 }  // namespace

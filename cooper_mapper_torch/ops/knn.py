@@ -13,19 +13,25 @@ Shapes: queries ``[B, Q, 3]``; the reference is shared ``[M, 3]`` (mask
 ``[B, Q, k]``: int32 indices in ``[0, M)`` and f32 squared distances.
 
 Dispatch follows the device: a CPU tensor runs ``knn_plain``, a CUDA tensor
-launches a kernel of ``csrc/knn.cu`` or raises, for every k with
-``1 <= k <= M`` and any B.  Up to the library's
+launches a kernel of ``csrc/knn.cu`` or ``csrc/knn_select.cu`` or raises,
+for every k with ``1 <= k <= M`` and any B.  Up to the library's
 ``cooper_knn_register_max_k()`` (32) each query's list lives in registers
 (``knn_kernel<k, QPT>``); where the query blocks would not give every SM of
 the card one (B = 1), that kernel splits M across blocks and merges their
-sorted lists in chunk order (``races._split_plan``, ``csrc/split.cuh``): the
-same bits as one scan.  A larger k takes the select route
-(``knn_select_kernel``, counted by ``knn_select``): a block per query finds
-the k-th smallest (distance, index) key by radix select, gathers the k keys
-at or under it and sorts them.  Both routes evaluate the distance with the
-plain version's f32 operations in its order (``races.pairwise_sq_dist``), so
-they agree with it bit for bit.  They differ from it where a distance is
-NaN: a NaN never enters a list, so a NaN query gives (+inf, 0..k-1).
+sorted lists (``races._split_plan``, ``csrc/split.cuh``): the same bits as
+one scan (``merge_first_k``).  A larger k takes the select route (counted
+by ``knn_select``): up to the library's ``cooper_knn_select_warp_max_k()``
+(1024) a warp per query, each lane keeping the smallest (distance, index)
+keys of its own points, a block of up to 8 such warps sharing its tiles of
+the reference (``knn_select_kernel``, ``races._select_plan``); the warp
+sorts the lanes' lists and checks that none dropped a key of the answer,
+else a warp select gives the list (``knn_select_kernel_pass2``); above
+1024, a block per query finds the k-th key by radix select and sorts the k
+keys at or under it (``knn_radix_kernel``).
+Every route evaluates the distance with the plain version's f32 operations
+in its order (``races.pairwise_sq_dist``), so they agree with it bit for
+bit.  They differ from it where a distance is NaN: a NaN never enters a
+list, so a NaN query gives (+inf, 0..k-1).
 """
 
 from __future__ import annotations
@@ -141,27 +147,33 @@ def knn_select(q, r_xyz, r_mask, k: int):
     return _knn_select_cuda(q, r_xyz, r_mask, k)
 
 
-# Bytes of the select route's scratch for one launch, where a query's keys
+# Bytes of the radix select's scratch for one launch, where a query's keys
 # exceed shared memory (k > 4096): the queries go rows at a time.
 _SELECT_SCRATCH_BYTES = 1 << 27
 
 
-def _knn_select_cuda(q, r_xyz, r_mask, k):
-    """The select kernel on CUDA tensors: one block per query."""
+def _knn_select_cuda(q, r_xyz, r_mask, k, plan=None):
+    """The select kernels on CUDA tensors; ``plan`` = QB, the queries per
+    block of the warp select, overrides ``races._select_plan``."""
     from ..build import library
 
     lib = library()
     B, Q, M, shared = _check_knn(q, r_xyz, r_mask, k)
+    qb = plan or races._select_plan(B, Q, races.sm_count(q.device))
     rn = races._ref_norms(r_xyz, r_mask)
     out_d = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
     keys, rows, scratch = lib.cooper_knn_select_keys(k), 1, None
-    if keys > lib.cooper_knn_select_smem_keys():
+    if k <= lib.cooper_knn_select_warp_max_k():
+        # the first pass's k-th key per query, for the second
+        scratch = torch.empty(B * Q, dtype=torch.int64, device=q.device)
+    elif keys > lib.cooper_knn_select_smem_keys():
         rows = max(1, min(B * Q, _SELECT_SCRATCH_BYTES // (8 * keys)))
         scratch = torch.empty((rows, keys), dtype=torch.int64, device=q.device)
     races._launch("knn_select", q, lib.cooper_knn_select,
                   q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
-                  out_i.data_ptr(), races._ptr(scratch), B, Q, M, 0 if shared else M, k, rows)
+                  out_i.data_ptr(), races._ptr(scratch), B, Q, M, 0 if shared else M, k, rows,
+                  qb)
     knn_select.launches += 1
     return out_i, out_d
 
@@ -192,6 +204,58 @@ def _knn_cuda(q, r_xyz, r_mask, k=5, plan=None):
     knn.launches += 1
     knn.merges += S > 1
     return out_i, out_d
+
+
+def merge_first_k_plain(part_d, part_i):
+    """The chunk-order merge of S first-k lists per query, plain PyTorch:
+    part_d f32 / part_i int32 [S, n, k], each chunk's list ascending ->
+    (idx int32, dist f32) [n, k].  The merge meets the chunks' entries in
+    order, from (+inf, 0..k-1), and puts an entry whose distance is below
+    the list's last behind the equal ones ("<"); a chunk's scan stops at its
+    first entry that cannot enter, so a NaN or +inf distance, and whatever
+    follows it in its chunk, never does.  So the list is the first k finite
+    entries by distance, ties in chunk order, then (+inf, 0), (+inf, 1), ...
+    in the slots left."""
+    S, n, k = part_d.shape
+    live = torch.cummin((part_d < torch.inf).to(torch.int32), dim=-1).values.bool()
+    d = torch.where(live, part_d, torch.inf).permute(1, 0, 2).reshape(n, S * k)
+    i = part_i.permute(1, 0, 2).reshape(n, S * k)
+    v, order = torch.sort(d, dim=1, stable=True)
+    v, idx = v[:, :k].contiguous(), torch.gather(i, 1, order[:, :k])
+    listed = v < torch.inf
+    slot = torch.arange(k, device=part_d.device) - listed.sum(1, keepdim=True)
+    return torch.where(listed, idx, slot).to(torch.int32), v
+
+
+def merge_first_k(part_d, part_i):
+    """The merge of a split k-NN's chunk lists (``csrc/split.cuh``
+    ``merge_first_k``), [S, n, k] -> (idx, dist) [n, k], k up to the
+    register lists' largest.  ``_knn_cuda`` launches it inside its own call
+    where it splits M (counted by ``knn.merges``); this entry serves tests
+    and timing.  On chunk lists as the k-NN kernel writes them (ascending by
+    (distance, index), chunk z's indices above chunk z-1's) it equals
+    ``merge_first_k_plain``."""
+    if not races._require_device(part_d):
+        return merge_first_k_plain(part_d, part_i)
+    return _merge_first_k_cuda(part_d, part_i)
+
+
+def _merge_first_k_cuda(part_d, part_i):
+    """merge_first_k on CUDA tensors."""
+    from ..build import library
+
+    lib = library()
+    if part_d.dim() != 3 or not 1 <= part_d.shape[2] <= lib.cooper_knn_register_max_k():
+        raise ValueError(f"chunk lists must be [S, n, k <= "
+                         f"{lib.cooper_knn_register_max_k()}], got {tuple(part_d.shape)}")
+    races._check("part_d", part_d, torch.float32, part_d.shape, part_d.device)
+    races._check("part_i", part_i, torch.int32, part_d.shape, part_d.device)
+    S, n, k = part_d.shape
+    d = torch.empty((n, k), dtype=torch.float32, device=part_d.device)
+    i = torch.empty((n, k), dtype=torch.int32, device=part_d.device)
+    races._launch("merge_first_k", part_d, lib.cooper_merge_first_k, part_d.data_ptr(),
+                  part_i.data_ptr(), d.data_ptr(), i.data_ptr(), n, S, k)
+    return i, d
 
 
 knn.launches = 0

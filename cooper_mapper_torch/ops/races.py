@@ -85,6 +85,24 @@ def _split_plan(B, Q, M, n_sm, block_queries):
     return -(-M // L), L
 
 
+# The k-NN's warp select (csrc/knn_select.cu): a warp per query, at most
+# SELECT_MAX_QB queries of one problem per block, sharing the block's tiles
+# of the reference.  Which k it serves is the library's
+# (cooper_knn_select_warp_max_k); the radix select above takes no plan.
+SELECT_MAX_QB = 8
+
+
+def _select_plan(B, Q, n_sm):
+    """QB, the queries per block of a warp-select k-NN of B problems of Q
+    queries on a card of ``n_sm`` SMs: the most (up to SELECT_MAX_QB) whose
+    ``B x ceil(Q / QB)`` blocks still give every SM one, so that a small Q
+    still spreads over the card."""
+    qb = SELECT_MAX_QB
+    while qb > 1 and B * -(-Q // qb) < n_sm:
+        qb //= 2
+    return qb
+
+
 def _fused_plan(B, Q, n_sm):
     """(G, QPT): the lanes per query and queries per thread of a fused
     search of B problems of Q queries on a card of ``n_sm`` SMs."""

@@ -1012,6 +1012,118 @@ def test_knn_select_route_in_scratch_slabs(cuda, monkeypatch):
         knn._knn_cuda(q, xyz, mask, 33)      # the register lists stop at 32
 
 
+def _chunk_lists(S, n, K, device, seed=0):
+    """Chunk lists [S, n, K] as the split k-NN kernel writes them: chunk z
+    holds 1..L points with indices from z * L, integer distances (ties within
+    and across chunks) and some BIG, listed by (d, j), then (+inf, 0), (+inf,
+    1), ... where the chunk has fewer than K points, and all fillers on the
+    rows of NaN queries (every 37th)."""
+    g = torch.Generator().manual_seed(seed + 100 * S + K)
+    L = max(4, K + K // 2)
+    pd = torch.full((S, n, K), float("inf"))
+    pi = torch.zeros((S, n, K), dtype=torch.int32)
+    nan_rows = torch.arange(n) % 37 == 5
+    for z in range(S):
+        Lz = int(torch.randint(1, L + 1, (1,), generator=g))
+        d = torch.randint(0, 5, (n, Lz), generator=g).float()
+        d[torch.rand(n, Lz, generator=g) < 0.1] = races.BIG
+        v, o = torch.sort(d, dim=1, stable=True)
+        F = min(K, Lz)
+        pd[z, :, :F], pi[z, :, :F] = v[:, :F], (o[:, :F] + z * L).int()
+        pi[z, :, F:] = torch.arange(K - F, dtype=torch.int32)
+        pd[z, nan_rows], pi[z, nan_rows] = float("inf"), torch.arange(K, dtype=torch.int32)
+    return pd.to(device), pi.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 3, 17, 31, 33, 66, 130])
+def test_merge_first_k_equals_the_chunk_order_merge(cuda, S):
+    # every K of the register lists: the card's merge (threads per query,
+    # pairwise merges of key lists) against the chunk-order merge, under
+    # ties, fillers and ragged n
+    for K in range(1, 33):
+        for n in (1000, 37):
+            pd, pi = _chunk_lists(S, n, K, cuda)
+            got = knn.merge_first_k(pd, pi)
+            torch.cuda.synchronize()
+            assert got[0].is_cuda and got[1].is_cuda
+            want = knn.merge_first_k_plain(pd, pi)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (K, n)
+    with pytest.raises(ValueError):
+        knn.merge_first_k(*_chunk_lists(S, 8, 33, cuda))
+
+
+def _spatially_ordered(xyz, mask):
+    """The reference sorted along a Morton-like key of its cells (as the cube
+    map and the voxel filter store points), each problem on its own."""
+    cell = ((xyz + 8.0) / 2.0).floor().long().clamp(0, 7)
+    key = (cell[..., 0] * 64 + cell[..., 1] * 8 + cell[..., 2]).float() + \
+        xyz[..., 0].remainder(2.0) * 1e-3
+    order = torch.argsort(key, dim=-1)
+    take = lambda t: torch.gather(t, -1, order) if t.dim() == order.dim() else \
+        torch.gather(t, -2, order[..., None].expand(*order.shape, 3))
+    return take(xyz).contiguous(), take(mask).contiguous()
+
+
+SELECT_EDGE_KS = (33, 63, 64, 65, 127, 128, 1000, 1024, 1025)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["shuffled", "spatial"])
+@pytest.mark.parametrize("per_problem", [False, True])
+def test_knn_select_route_at_the_list_edges(cuda, per_problem, order):
+    # the warp select at every list length's edges (64 to 1024 keys), the
+    # radix select above and at k = M, on shared and per-problem references,
+    # in random and in spatial order; every k launched once
+    q, xyz, _, mask = _problem(25, 2, 150, 1300, per_problem, cuda)
+    if order == "spatial":
+        xyz, mask = _spatially_ordered(xyz, mask)
+    before = knn.knn_select.launches
+    for k in SELECT_EDGE_KS + (1300,):
+        got, want = knn.knn(q, xyz, mask, k), knn.knn_plain(q, xyz, mask, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+    torch.cuda.synchronize()
+    assert knn.knn_select.launches == before + len(SELECT_EDGE_KS) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True])
+def test_knn_select_route_when_one_lane_holds_the_nearest(cuda, per_problem):
+    # the nearest points at indices 3 mod 32, all seen by one lane of the
+    # first pass: its check fails and the warp select gives the list; k = 600
+    # (above 32 keys x 16 per lane) skips the first pass
+    rng = np.random.RandomState(27)
+    M = 1300
+    lead = (2,) if per_problem else ()
+    xyz = rng.uniform(-8.0, 8.0, lead + (M, 3)).astype(np.float32)
+    near = np.arange(3, M, 32)
+    xyz[..., near, :] = rng.uniform(-0.5, 0.5, lead + (len(near), 3)).astype(np.float32)
+    q = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, 40, 3)).astype(np.float32)).to(cuda)
+    xyz = torch.from_numpy(xyz).to(cuda)
+    mask = torch.ones(lead + (M,), dtype=torch.bool, device=cuda)
+    for k in (33, 64, 257, 600):
+        got, want = knn.knn(q, xyz, mask, k), knn.knn_plain(q, xyz, mask, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+
+
+@pytest.mark.cuda
+def test_select_plan_matches_the_library_and_every_qb_agrees(cuda):
+    # the library's route edge is the one SELECT_EDGE_KS straddles; every
+    # block shape gives the same lists, small Q included; a block shape the
+    # kernel lacks raises
+    lib = __import__("cooper_mapper_torch.build", fromlist=["library"]).library()
+    assert lib.cooper_knn_select_warp_max_k() == 1024
+    assert lib.cooper_knn_register_max_k() < 33
+    q, xyz, _, mask = _problem(26, 3, 45, 900, True, cuda)
+    for k in (33, 100, 600):
+        want = knn.knn_plain(q, xyz, mask, k)
+        for qb in (1, 2, 4, 8):
+            got = knn._knn_select_cuda(q, xyz, mask, k, plan=qb)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, qb)
+    with pytest.raises(RuntimeError):
+        knn._knn_select_cuda(q, xyz, mask, 33, plan=races.SELECT_MAX_QB + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("per_problem", [False, True])
 @pytest.mark.parametrize("split", [False, True])

@@ -309,3 +309,176 @@ def test_merge_of_a_nan_query_is_inf_and_the_first_slots():
     finite = np.arange(6) != 2
     np.testing.assert_array_equal(got_i[finite], want_i[finite])
     np.testing.assert_array_equal(got_d[finite], want_d[finite])
+
+
+# ---------------------------------------------------------------------------
+# The card's merge of chunk lists and its select route, modelled step for
+# step in numpy (tests/torch_knn_models.py) and held to the plain versions
+# ---------------------------------------------------------------------------
+
+from tests import torch_knn_models as KM  # noqa: E402
+
+
+def _chunk_lists(rng, S, n, K, L, nan_rows=()):
+    """Chunk lists [S, n, K] as the split k-NN kernel writes them: chunk z
+    holds 1..L points with indices from z * L, integer distances (heavy ties
+    within and across chunks) and some BIG; its list is the first K finite
+    entries by (d, j), then (+inf, 0), (+inf, 1), ... where it has fewer
+    (chunks shorter than K, and every chunk of a NaN query's rows)."""
+    pd = np.full((S, n, K), np.inf, np.float32)
+    pi = np.zeros((S, n, K), np.int32)
+    for z in range(S):
+        Lz = rng.randint(1, L + 1)
+        d = rng.randint(0, 5, (n, Lz)).astype(np.float32)
+        d[rng.rand(n, Lz) < 0.1] = tknn.races.BIG
+        d[list(nan_rows)] = np.nan
+        j = z * L + np.arange(Lz)
+        for t in range(n):
+            fin = ~np.isnan(d[t])
+            o = np.lexsort((j[fin], d[t][fin]))[:K]
+            F = len(o)
+            pd[z, t, :F], pi[z, t, :F] = d[t][fin][o], j[fin][o]
+            pi[z, t, F:] = np.arange(K - F)
+    return pd, pi
+
+
+@pytest.mark.parametrize("S", [1, 2, 5, 17, 31, 66, 130])
+@pytest.mark.parametrize("K", [1, 5, 10, 19, 32])
+def test_merge_first_k_model_equals_the_chunk_order_scan(K, S):
+    # merge_first_k's grouping (threads per query over strided chunks, the
+    # pairwise merges of sorted key lists, the fillers kept out) against the
+    # chunk-order scan, literally and as merge_first_k_plain; under ties, a
+    # NaN query (every chunk all fillers) and chunks of fewer than K points
+    rng = np.random.RandomState(K * 1000 + S)
+    pd, pi = _chunk_lists(rng, S, 24, K, 8 if K < 10 else 3 * K // 2, nan_rows=(5,))
+    want_i, want_d = _merge_first_k([(pi[z], pd[z]) for z in range(S)], K)
+    plain_i, plain_d = tknn.merge_first_k_plain(torch.from_numpy(pd), torch.from_numpy(pi))
+    np.testing.assert_array_equal(plain_i.numpy(), want_i)
+    np.testing.assert_array_equal(plain_d.numpy(), want_d)
+    got_i, got_d = KM.merge_first_k_model(pd, pi)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_d, want_d)
+    assert np.isinf(got_d[5]).all() and (got_i[5] == np.arange(K)).all()
+    # the CPU entry is the plain version
+    got = tknn.merge_first_k(torch.from_numpy(pd), torch.from_numpy(pi))
+    assert torch.equal(got[0], plain_i) and torch.equal(got[1], plain_d)
+
+
+@pytest.mark.parametrize("W", [1, 2, 8, 32])
+def test_merge_first_k_model_at_other_shapes(W):
+    # the result does not depend on the grouping: the shapes timed against
+    # the one built give the same lists, on chunk lists of a real search
+    _, q, r, m = _tied_problem(12, 1, 30, 400, False, k_edge=(40, 120))
+    k, L = 10, 25
+    parts = [_chunk_first_k(q, r, m, a, min(400, a + L), k) for a in range(0, 400, L)]
+    pd = np.stack([p[1].reshape(-1, k) for p in parts])
+    pi = np.stack([np.where(np.isinf(p[1]), np.arange(k) - np.isfinite(p[1]).sum(-1, keepdims=True),
+                            p[0]).reshape(-1, k) for p in parts]).astype(np.int32)
+    want_i, want_d = (t.numpy().reshape(-1, k) for t in tknn.knn_plain(q, r, m, k))
+    got_i, got_d = KM.merge_first_k_model(pd, pi, W)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_d, want_d)
+
+
+def _select_problem(seed, Q, M, n_valid=None):
+    """Queries near reference points (distances a little below 0 from f32
+    rounding), exact duplicates (ties), a NaN query; ``n_valid`` valid points
+    if given, else 90%."""
+    rng = np.random.RandomState(seed)
+    r = rng.uniform(5.0, 10.0, (M, 3)).astype(np.float32)
+    r[[30, 31, 200]] = r[7]
+    mask = rng.rand(M) > 0.1
+    if n_valid is not None:
+        mask[:] = False
+        mask[rng.choice(M, n_valid, replace=False)] = True
+    mask[[7, 30, 31, 200]] = True
+    q = rng.uniform(5.0, 10.0, (Q, 3)).astype(np.float32)
+    near = rng.choice(np.flatnonzero(mask), Q // 2)
+    q[:Q // 2] = r[near] + rng.normal(0, 1e-5, (Q // 2, 3)).astype(np.float32)
+    q[3] = r[7]
+    q[Q - 1, 1] = np.nan
+    return q, r, mask
+
+
+@pytest.mark.parametrize("k", [33, 64, 257])
+@pytest.mark.parametrize("n_valid", [None, 20], ids=["most-valid", "fewer-valid-than-k"])
+def test_select_model_equals_knn_plain_and_jax(k, n_valid):
+    # the select route's warp (the lanes' own lists, their sorted union and
+    # its check; keys, the fill rule) against knn_plain bit for bit, and
+    # against the JAX package's dense k-NN by the contract; a NaN query as
+    # the register lists give it, (+inf, 0..k-1)
+    q, r, mask = _select_problem(k, 16, 700, n_valid)
+    tq, tr, tm = torch.from_numpy(q)[None], torch.from_numpy(r), torch.from_numpy(mask)
+    want_i, want_d = (t[0].numpy() for t in tknn.knn_plain(tq, tr, tm, k))
+    assert (want_d[:-1] < 0).any() and (want_d[:-1] == 0).any()
+    D = tknn.races.pairwise_sq_dist(tq, tr, tknn.races._ref_norms(tr, tm))[0].numpy()
+    for t in range(16):
+        got_i, got_d = KM.knn_select_model(D[t], k)
+        if t == 15:
+            assert np.isinf(got_d).all() and (got_i == np.arange(k)).all()
+            continue
+        np.testing.assert_array_equal(got_i, want_i[t])
+        np.testing.assert_array_equal(got_d.view(np.uint32), want_d[t].view(np.uint32))
+    # the JAX package masks invalid points by its own rule: compare the
+    # valid neighbours; indices where no other distance lies within 1e-3
+    # (the JAX matrix-product rounding cannot swap them)
+    n = min(k, n_valid or k)
+    ji, jd = (np.asarray(a)[:, :n] for a in
+              jnb.knn(jnp.asarray(q[:-1]), jnp.asarray(r), jnp.asarray(mask), k))
+    np.testing.assert_allclose(want_d[:-1, :n], jd, rtol=1e-5, atol=1e-4)
+    full = np.sort(D[:-1], axis=1)
+    lo = np.concatenate([np.full((15, 1), -np.inf), full[:, :n - 1]], 1)
+    sure = (want_d[:-1, :n] - lo > 1e-3) & (full[:, 1:n + 1] - want_d[:-1, :n] > 1e-3)
+    assert sure.mean() > 0.5
+    np.testing.assert_array_equal(want_i[:-1, :n][sure], ji[sure])
+
+
+@pytest.mark.parametrize("k", [33, 257, 600])
+def test_select_model_falls_back_to_the_warp_select(k):
+    # one lane's points (indices 5 mod 32) hold the nearest ones, more than
+    # its own list keeps: pass 1's check fails and the warp select over the
+    # points under tau gives the list; above 32 L (k = 600) pass 1 is
+    # skipped and the warp select runs unbounded; bit for bit with knn_plain
+    rng = np.random.RandomState(k)
+    M = 700
+    r = rng.uniform(-8.0, 8.0, (M, 3)).astype(np.float32)
+    near = np.arange(5, M, 32)
+    r[near] = rng.uniform(-0.5, 0.5, (len(near), 3)).astype(np.float32)
+    q = rng.uniform(-0.3, 0.3, (1, 6, 3)).astype(np.float32)
+    tq, tr, tm = torch.from_numpy(q), torch.from_numpy(r), torch.ones(M, dtype=torch.bool)
+    want_i, want_d = (t[0].numpy() for t in tknn.knn_plain(tq, tr, tm, k))
+    D = tknn.races.pairwise_sq_dist(tq, tr, tknn.races._ref_norms(tr, tm))[0].numpy()
+    for t in range(6):
+        trace = {}
+        got_i, got_d = KM.knn_select_model(D[t], k, trace)
+        assert not trace["exact"] and trace["merges"] > 0
+        np.testing.assert_array_equal(got_i, want_i[t])
+        np.testing.assert_array_equal(got_d.view(np.uint32), want_d[t].view(np.uint32))
+
+
+def test_select_route_key_order_is_the_distance_index_order():
+    # the 64-bit keys order as (d, j): negative, -0-free zero, positive,
+    # BIG; equal d by index; NO_KEY above every finite d
+    d = np.array([-3.5, -1e-7, 0.0, 1e-7, 2.0, 2.0, 1e12, 3e38], np.float32)
+    j = np.array([9, 4, 7, 1, 3, 8, 0, 2])
+    keys = KM.make_key(d, j)
+    assert (np.diff(keys.astype(object)) > 0).all() and (keys < KM.NO_KEY).all()
+    assert (KM.key_dist(keys).view(np.uint32) == d.view(np.uint32)).all()
+    assert KM.make_key(np.float32(np.inf), 0) < KM.NO_KEY   # +inf is kept out by the compare
+
+
+@pytest.mark.parametrize("B,Q,k,want", [
+    (64, 2048, 33, 8),      # the scan-to-map surf search
+    (64, 2048, 1024, 8),
+    (64, 2048, 1025, 8),    # the radix route above 1024 ignores it
+    (8, 2048, 257, 8),      # the per-problem map
+    (1, 8192, 64, 8),       # mapping sweep 4's surf search, B = 1
+    (2, 300, 100, 4),       # the tie-heavy grid: 75 blocks of 8 leave SMs idle
+    (1, 500, 40, 2),        # classify_map_points(k=40) on tests/test_io.py's scene
+    (65537, 128, 40, 8),    # B = 65,537
+    (1, 5, 33, 1),
+])
+def test_select_plan_at_the_coverage_shapes(B, Q, k, want):
+    # k picks the route in the library, not the plan
+    assert tknn.races._select_plan(B, Q, H100_SMS) == want
+    assert B * -(-Q // want) >= H100_SMS or want == 1

@@ -32,6 +32,16 @@ port at a time, on one NVIDIA card.
   plan splits it (S = 66), and into S = 32 and S = 2; of nn1 at 1x256 vs
   2048 (S = 32); and of bc_races' two searches at 1x1024 vs 8192 (S = 66).
 
+Two kinds are timed on the k-NN inputs above, with nothing more saved:
+
+* ``knn_select``: the select route (``knn.knn_select``) at 64x2048 vs 5888
+  and 1x8192 vs 65536 at k = 33, 64 and 257;
+* ``merge_first_k``: the split k-NN's merge inside ``knn.knn`` at the two
+  B = 1 sweep searches as their plan splits them (1x2048 vs 32768, S = 66;
+  1x8192 vs 65536, S = 17) at k = 5 and 10, its device ms read by kernel
+  name, so that a checkout with no entry of its own for the merge is timed
+  the same way.
+
 The second form imports ``cooper_mapper_torch`` from ``--root`` (default:
 this checkout), so that two commits can be timed on the same inputs, in
 turns, on one card (parent, change, change, parent).  For each search it
@@ -47,7 +57,8 @@ or for merge_min the bytes over the HBM rate); the card's name and power
 limit.  ``device_ms_by_kernel`` splits the port's kernels by name,
 so that merge_min's time inside a split race is read in a checkout that has
 no merge_min kind.  ``--variants`` also times each fused plan
-(``races.FUSED_PLANS``, forced through ``plan=``), where the checkout has
+(``races.FUSED_PLANS``, forced through ``plan=``) and each block shape of
+the warp select (1, 2, 4 or 8 queries per block), where the checkout has
 them.  Another design variant (a fused plan added to ``FUSED_PLANS`` and to
 ``launch_fused_plan`` in ``csrc/races.cu``, merge_min's ``MERGE_QB`` /
 ``MERGE_WARPS`` in ``csrc/split.cuh``) is timed as a checkout: edit it in a
@@ -68,6 +79,9 @@ import torch
 import chip_smoke as cs
 
 REPS = 20
+# the k-NN inputs (and k) of the derived kinds
+SELECT_INPUTS, SELECT_KS = ("knn 64x2048 vs 5888", "knn 1x8192 vs 65536 (surf)"), (33, 64, 257)
+MERGE_INPUTS, MERGE_KS = ("knn 1x2048 vs 32768 (corner)", "knn 1x8192 vs 65536 (surf)"), (5, 10)
 
 
 def save_inputs(path):
@@ -146,7 +160,13 @@ def save_inputs(path):
 def time_tree(path, label, only=None, variants=False):
     from cooper_mapper_torch.ops import knn, races
 
-    data = {k: v for k, v in torch.load(path).items() if not only or v["kind"] in only}
+    saved = torch.load(path)
+    data = {k: v for k, v in saved.items() if not only or v["kind"] in only}
+    for kind, inputs, ks in (("knn_select", SELECT_INPUTS, SELECT_KS),
+                             ("merge_first_k", MERGE_INPUTS, MERGE_KS)):
+        if not only or kind in only:
+            data.update({f"{kind} k={k} {name[4:]}": dict(saved[name], kind=kind, k=k)
+                         for name in inputs for k in ks})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     res = {"label": label, "module": os.path.dirname(knn.__file__), "card": smi}
@@ -165,8 +185,18 @@ def time_tree(path, label, only=None, variants=False):
             res[name] = {"searches": searches, "S": S, "n": n}
         else:
             q, r, m = t["q"], t["xyz"], t["mask"]
-            ops = cs.OPS_PER_PAIR[v["kind"]]
-            if v["kind"] == "knn":
+            ops = cs.OPS_PER_PAIR["knn" if "k" in v else v["kind"]]
+            if v["kind"] == "knn_select":
+                kern = lambda k=v["k"]: knn.knn_select(q, r, m, k)
+                plain = knn.knn_plain(q, r, m, v["k"])
+                if variants and hasattr(races, "SELECT_MAX_QB"):
+                    forced = {f"plan QB={qb}":
+                              (lambda qb=qb, k=v["k"]: knn._knn_select_cuda(q, r, m, k, plan=qb))
+                              for qb in (1, 2, 4, 8)}
+            elif v["kind"] == "merge_first_k":
+                kern = lambda k=v["k"]: knn.knn(q, r, m, k)
+                plain = knn.knn_plain(q, r, m, v["k"])
+            elif v["kind"] == "knn":
                 kern = lambda: knn.knn(q, r, m, 5)
                 plain = knn.knn_plain(q, r, m, 5)
             elif v["kind"] == "nn1":
@@ -191,7 +221,14 @@ def time_tree(path, label, only=None, variants=False):
                 plain = races.bc_races_plain(*args)
             B, Q, _ = q.shape
             bound = Q * cs.ref_counts(B, m)[2] * ops / cs.FP32_PEAK_OPS * 1e3
-            res[name] = {}
+            res[name] = {"k": v["k"]} if "k" in v else {}
+            if v["kind"] == "merge_first_k":
+                from cooper_mapper_torch.build import library
+
+                S = races._split_plan(B, Q, r.shape[0], races.sm_count(q.device),
+                                      library().cooper_knn_block_queries(v["k"]))[0]
+                bound = (S * B * Q * v["k"] * 8 + B * Q * v["k"] * 8) / cs.HBM_BYTES_PER_S * 1e3
+                res[name]["S"] = S
             if v["kind"] == "fused_races" and hasattr(races, "_fused_plan"):
                 res[name]["plan"] = races._fused_plan(B, Q, races.sm_count(q.device))
         for tag, fn in {"": kern, **forced}.items():
@@ -218,8 +255,9 @@ def main():
     ap.add_argument("--inputs")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--only", help="comma-separated kinds to time (knn, bc_races, nn1, "
-                                   "nn1_masked, fused_races, merge_min); default all")
+    ap.add_argument("--only", help="comma-separated kinds to time (knn, knn_select, "
+                                   "merge_first_k, bc_races, nn1, nn1_masked, fused_races, "
+                                   "merge_min); default all")
     ap.add_argument("--variants", action="store_true",
                     help="also time each fused plan the checkout builds")
     args = ap.parse_args()
