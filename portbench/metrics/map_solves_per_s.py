@@ -1,0 +1,2 @@
+"""Scan-to-map solves completed per second over the whole window (host clock)."""
+from portbench.harness.readers import rate as read  # noqa: F401
