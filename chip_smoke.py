@@ -459,32 +459,38 @@ def log(msg):
     print(msg, flush=True)
 
 
-def kernels():
-    """The kernel wrappers of the port's paths at their configured k, each
-    with its launch counter: nn1, nn1_masked, bc_races, fused_races,
-    merge_min (counted where the split races launch it), knn (the register
-    lists).  The k-NN's select route, taken only at k > 32, is counted apart
-    (``knn.knn_select``) and read in phase 41, which drives it."""
-    from cooper_mapper_torch.ops import knn, races
-
-    return races.KERNELS + (races.merge_min, knn.knn)
+# The launch counters (``utils/profiling.COUNTS``) of the port's kernels on
+# its paths at their configured k: nn1, nn1_masked, bc_races, fused_races,
+# merge_min (counted where the split races launch it), knn (the register
+# lists).  The k-NN's select route, taken only at k > 32, is counted apart
+# (``knn.knn_select.launches``) and read in phase 41, which drives it.
+KERNEL_COUNTERS = ("races.nn1", "races.nn1_masked", "races.bc_races", "races.fused_races",
+                   "races.merge_min", "knn.knn")
+# the split searches, which also count the calls that launched their merge
+SPLIT_COUNTERS = ("races.nn1", "races.nn1_masked", "races.bc_races", "knn.knn")
 
 
 def reset_launches():
-    for k in kernels():
-        k.launches = 0
-        if hasattr(k, "merges"):
-            k.merges = 0
+    from cooper_mapper_torch.utils.profiling import COUNTS
+
+    for k in KERNEL_COUNTERS:
+        COUNTS[f"{k}.launches"] = 0
+    for k in SPLIT_COUNTERS:
+        COUNTS[f"{k}.merges"] = 0
 
 
 def read_launches():
-    return {k.__name__: k.launches for k in kernels()}
+    from cooper_mapper_torch.utils.profiling import COUNTS
+
+    return {k.rsplit(".", 1)[1]: COUNTS[f"{k}.launches"] for k in KERNEL_COUNTERS}
 
 
 def read_merges():
     """Calls of the split searches (nn1, nn1_masked, bc_races, knn) that
     split M across blocks and so also launched their merge kernel."""
-    return {k.__name__: k.merges for k in kernels() if hasattr(k, "merges")}
+    from cooper_mapper_torch.utils.profiling import COUNTS
+
+    return {k.rsplit(".", 1)[1]: COUNTS[f"{k}.merges"] for k in SPLIT_COUNTERS}
 
 
 def fail(msg):
@@ -2206,9 +2212,9 @@ def icp_phase(pipe, device):
     q = se3.apply(T_guess, kf.surf.xyz)[None].contiguous()
     M = ref_surf.xyz.shape[0]
     S, L = races._split_plan(1, q.shape[1], M, n_sm, library().cooper_nn1_block_queries())
-    m0 = races.nn1.merges
+    m0 = read_merges()["nn1"]
     ik, dk = races.nn1(q, ref_surf.xyz, ref_surf.mask)
-    merges = races.nn1.merges - m0
+    merges = read_merges()["nn1"] - m0
     ip, dp = races.nn1_plain(q, ref_surf.xyz, ref_surf.mask)
     torch.cuda.synchronize()
     same = torch.equal(ik, ip) and torch.equal(dk, dp)
@@ -4463,8 +4469,8 @@ def coverage_phase(scan, split_inputs, bench, device):
     B = WIDE_B, bit for bit; then the main paths there, counted:
     batch_odometry_solve at B = WIDE_B, batch_scan_match at knn=8 and
     classify_map_points at k = 8 and 40.  Returns the phase's numbers."""
-    from cooper_mapper_torch.ops import knn
     from cooper_mapper_torch.utils import twist
+    from cooper_mapper_torch.utils.profiling import COUNTS
 
     t_start = time.perf_counter()
     corner, surf, map_c, map_s, x0_sm = scan
@@ -4492,12 +4498,12 @@ def coverage_phase(scan, split_inputs, bench, device):
 
     log("    main paths at the new reach, every launch counter at 0 first")
     reset_launches()
-    knn.knn_select.launches = 0
+    COUNTS["knn.knn_select.launches"] = 0
     odo = wide_odometry(bench, device)
     sm_dx = knn8_scan_match(scan, device)
     labels = classify_check(device)
     torch.cuda.synchronize()
-    launches = dict(read_launches(), knn_select=knn.knn_select.launches)
+    launches = dict(read_launches(), knn_select=COUNTS["knn.knn_select.launches"])
     log(f"    launches in phase 41's main paths: {launches}")
     for k in ("nn1", "nn1_masked", "bc_races", "knn", "knn_select"):
         if launches[k] <= 0:

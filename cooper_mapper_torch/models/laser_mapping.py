@@ -23,7 +23,7 @@ from ..maps import local_map as lm
 from ..ops import scan_match as sm
 from ..ops.voxel import voxel_downsample
 from ..utils import cloud as cloud_lib
-from ..utils import se3, twist
+from ..utils import profiling, se3, twist
 from ..utils.cloud import Cloud
 
 
@@ -77,20 +77,26 @@ def mapping_step(matcher: MatcherState, map_state: fm.FeatureMapState, corner: C
                  map_cfg: MapConfig, recenter: bool = True):
     """Full LaserMapping step against the cube-grid map: recentre the window
     on the merge guess (unless ``recenter=False``), gather the surround,
-    solve, commit and insert.  ``map_state`` is updated in place.
+    solve, commit and insert.  ``map_state`` is updated in place.  Spans
+    ``mapping.prepare_frame``, ``mapping.recenter``, ``mapping.surround``,
+    the solve's ``scan_match.solve`` and ``mapping.insert`` (the commit).
     Returns (matcher', map_state, MappingOutput)."""
     T_guess = se3.transform_associate(matcher.L_last, L_now, matcher.W_last)
-    corner_ds, surf_ds = prepare_frame(corner, surf, matcher_cfg)
+    with profiling.span("mapping.prepare_frame"):
+        corner_ds, surf_ds = prepare_frame(corner, surf, matcher_cfg)
 
     sensor_pos = T_guess[:3, 3]
     if recenter:
-        map_state = fm.recenter(map_state, sensor_pos, map_cfg)
-    ref_corner, ref_surf = fm.get_surround(map_state, sensor_pos, map_cfg)
+        with profiling.span("mapping.recenter"):
+            map_state = fm.recenter(map_state, sensor_pos, map_cfg)
+    with profiling.span("mapping.surround"):
+        ref_corner, ref_surf = fm.get_surround(map_state, sensor_pos, map_cfg)
 
     res = sm.scan_match(corner_ds, surf_ds, ref_corner, ref_surf, twist.from_mat(T_guess),
                         sm_cfg)
-    W_new, map_state = _commit(res, T_guess, map_state, corner_ds, surf_ds, map_cfg,
-                               matcher_cfg)
+    with profiling.span("mapping.insert"):
+        W_new, map_state = _commit(res, T_guess, map_state, corner_ds, surf_ds, map_cfg,
+                                   matcher_cfg)
     return (MatcherState(L_last=L_now, W_last=W_new), map_state,
             MappingOutput(W=W_new, result=res, corner_ds=corner_ds, surf_ds=surf_ds))
 

@@ -144,7 +144,7 @@ class SlamPipeline:
         self.T_li = torch.eye(4, dtype=torch.float32, device=device)   # lidar -> imu
         self._last_stamp: Optional[float] = None
         self._last_fused_pos: Optional[np.ndarray] = None
-        # per-stage wall clock; timer.report() prints it
+        # per-stage wall clock (a span per stage with tracing on); timer.report() prints it
         self.timer = profiling.StageTimer()
 
     def _f32(self, v):
@@ -253,7 +253,7 @@ class SlamPipeline:
 
         # UKF fusion: replay the IMU predicts, correct with the solve
         if imu is not None and stamp is not None:
-            with self.timer.stage("ukf"):
+            with self.timer.stage("ukf", sync=dev):
                 if self._last_stamp is None:
                     # filter birth: anchors the predict cool-down window
                     self.ukf = dataclasses.replace(self.ukf, init_stamp=self._f32(stamp))

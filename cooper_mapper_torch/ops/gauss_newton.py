@@ -18,6 +18,8 @@ import dataclasses
 
 import torch
 
+from ..utils import profiling
+
 
 def assemble_normal_eqs(J, b, valid):
     """J [..., N, 6], b [..., N], valid [..., N] bool ->
@@ -25,13 +27,16 @@ def assemble_normal_eqs(J, b, valid):
 
     Invalid rows are hard-zeroed with ``torch.where``, never multiplied:
     masked rows can hold NaN/Inf from FAR-sentinel geometry and 0 * NaN = NaN
-    would poison the whole system.
+    would poison the whole system.  Span ``gn.normal_eqs``; counter ``rows``
+    (the valid rows).
     """
-    Jm = torch.where(valid[..., None], J, torch.zeros((), dtype=J.dtype, device=J.device))
-    bm = torch.where(valid, b, torch.zeros((), dtype=b.dtype, device=b.device))
-    JtJ = Jm.transpose(-1, -2) @ Jm
-    Jtb = (Jm.transpose(-1, -2) @ bm[..., None])[..., 0]
-    return JtJ, Jtb, valid.to(J.dtype).sum(dim=-1)
+    with profiling.span("gn.normal_eqs"):
+        profiling.count("rows", valid)
+        Jm = torch.where(valid[..., None], J, torch.zeros((), dtype=J.dtype, device=J.device))
+        bm = torch.where(valid, b, torch.zeros((), dtype=b.dtype, device=b.device))
+        JtJ = Jm.transpose(-1, -2) @ Jm
+        Jtb = (Jm.transpose(-1, -2) @ bm[..., None])[..., 0]
+        return JtJ, Jtb, valid.to(J.dtype).sum(dim=-1)
 
 
 def _eye6(like):
@@ -196,43 +201,44 @@ def gn_step(state: GNState, JtJ, Jtb, n_valid, iteration: int, eig_threshold,
     the full system, then ``P @ dx`` on degenerate lanes
     (LaserOdometry.cpp:609-613), with the row-zeroing projector.
     ``lm_damping`` is added before the solve in both modes, as the JAX
-    package does (ROADMAP Queue 3).
+    package does (ROADMAP Queue 3).  Span ``gn.update``.
     """
-    if compute_projector:
-        P, is_degenerate = degeneracy_projector(JtJ, eig_threshold, reference_mode)
-    else:
-        P, is_degenerate = state.P, state.is_degenerate
+    with profiling.span("gn.update"):
+        if compute_projector:
+            P, is_degenerate = degeneracy_projector(JtJ, eig_threshold, reference_mode)
+        else:
+            P, is_degenerate = state.P, state.is_degenerate
 
-    if lm_damping > 0.0:
-        diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
-        JtJ = JtJ + lm_damping * torch.diag_embed(diag)
+        if lm_damping > 0.0:
+            diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
+            JtJ = JtJ + lm_damping * torch.diag_embed(diag)
 
-    if reference_mode:
-        dx = solve_6x6(JtJ, Jtb, spd=False)
-        dx = torch.where(is_degenerate[..., None], (P @ dx[..., None])[..., 0], dx)
-    else:
-        eye = _eye6(JtJ)
-        A_eff = torch.where(is_degenerate[..., None, None], P @ JtJ @ P + (eye - P), JtJ)
-        b_eff = torch.where(is_degenerate[..., None], (P @ Jtb[..., None])[..., 0], Jtb)
-        dx = solve_6x6(A_eff, b_eff)
+        if reference_mode:
+            dx = solve_6x6(JtJ, Jtb, spd=False)
+            dx = torch.where(is_degenerate[..., None], (P @ dx[..., None])[..., 0], dx)
+        else:
+            eye = _eye6(JtJ)
+            A_eff = torch.where(is_degenerate[..., None, None], P @ JtJ @ P + (eye - P), JtJ)
+            b_eff = torch.where(is_degenerate[..., None], (P @ Jtb[..., None])[..., 0], Jtb)
+            dx = solve_6x6(A_eff, b_eff)
 
-    if trust_region_t > 0.0:
-        dx = torch.cat([dx[..., :3], _clamp_norm(dx[..., 3:], trust_region_t)], dim=-1)
-    if trust_region_r > 0.0:
-        dx = torch.cat([_clamp_norm(dx[..., :3], trust_region_r), dx[..., 3:]], dim=-1)
-    dx = nan_guard(dx)
+        if trust_region_t > 0.0:
+            dx = torch.cat([dx[..., :3], _clamp_norm(dx[..., 3:], trust_region_t)], dim=-1)
+        if trust_region_r > 0.0:
+            dx = torch.cat([_clamp_norm(dx[..., :3], trust_region_r), dx[..., 3:]], dim=-1)
+        dx = nan_guard(dx)
 
-    active = (~state.converged) & (n_valid >= min_matched)
-    x_new = nan_guard(state.x + torch.where(active[..., None], dx, torch.zeros_like(dx)))
+        active = (~state.converged) & (n_valid >= min_matched)
+        x_new = nan_guard(state.x + torch.where(active[..., None], dx, torch.zeros_like(dx)))
 
-    delta_r, delta_t = convergence_deltas(dx)
-    just_converged = (active & (delta_r < delta_r_abort) & (delta_t < delta_t_abort)
-                      & (iteration >= min_converge_iter))
-    return GNState(
-        x=x_new,
-        P=P,
-        is_degenerate=is_degenerate,
-        converged=state.converged | just_converged,
-        n_matched=n_valid,
-        iter_used=state.iter_used + active.to(torch.int32),
-    )
+        delta_r, delta_t = convergence_deltas(dx)
+        just_converged = (active & (delta_r < delta_r_abort) & (delta_t < delta_t_abort)
+                          & (iteration >= min_converge_iter))
+        return GNState(
+            x=x_new,
+            P=P,
+            is_degenerate=is_degenerate,
+            converged=state.converged | just_converged,
+            n_matched=n_valid,
+            iter_used=state.iter_used + active.to(torch.int32),
+        )

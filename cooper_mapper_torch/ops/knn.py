@@ -19,8 +19,8 @@ for every k with ``1 <= k <= M`` and any B.  Up to the library's
 (``knn_kernel<k, QPT>``); where the query blocks would not give every SM of
 the card one (B = 1), that kernel splits M across blocks and merges their
 sorted lists (``races._split_plan``, ``csrc/split.cuh``): the same bits as
-one scan (``merge_first_k``).  A larger k takes the select route (counted
-by ``knn_select``): up to the library's ``cooper_knn_select_warp_max_k()``
+one scan (``merge_first_k``).  A larger k takes the select route
+(``knn_select``): up to the library's ``cooper_knn_select_warp_max_k()``
 (1024) a warp per query, each lane keeping the smallest (distance, index)
 keys of its own points, a block of up to 8 such warps sharing its tiles of
 the reference (``knn_select_kernel``, ``races._select_plan``); the warp
@@ -32,12 +32,17 @@ Every route evaluates the distance with the plain version's f32 operations
 in its order (``races.pairwise_sq_dist``), so they agree with it bit for
 bit.  They differ from it where a distance is NaN: a NaN never enters a
 list, so a NaN query gives (+inf, 0..k-1).
+
+The launches are counted in ``utils/profiling.COUNTS``: ``knn.knn.launches``
+(the register lists), ``knn.knn.merges`` (those calls that split M and so
+launched ``merge_first_k`` too) and ``knn.knn_select.launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import races
 from .races import _split_plan
 
@@ -174,7 +179,7 @@ def _knn_select_cuda(q, r_xyz, r_mask, k, plan=None):
                   q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
                   out_i.data_ptr(), races._ptr(scratch), B, Q, M, 0 if shared else M, k, rows,
                   qb)
-    knn_select.launches += 1
+    profiling.tally("knn.knn_select.launches")
     return out_i, out_d
 
 
@@ -201,8 +206,8 @@ def _knn_cuda(q, r_xyz, r_mask, k=5, plan=None):
                   q.data_ptr(), r_xyz.data_ptr(), rn.data_ptr(), out_d.data_ptr(),
                   out_i.data_ptr(), races._ptr(part_d), races._ptr(part_i), B, Q, M,
                   0 if shared else M, k, S, L)
-    knn.launches += 1
-    knn.merges += S > 1
+    profiling.tally("knn.knn.launches")
+    profiling.tally("knn.knn.merges", S > 1)
     return out_i, out_d
 
 
@@ -231,8 +236,8 @@ def merge_first_k(part_d, part_i):
     """The merge of a split k-NN's chunk lists (``csrc/split.cuh``
     ``merge_first_k``), [S, n, k] -> (idx, dist) [n, k], k up to the
     register lists' largest.  ``_knn_cuda`` launches it inside its own call
-    where it splits M (counted by ``knn.merges``); this entry serves tests
-    and timing.  On chunk lists as the k-NN kernel writes them (ascending by
+    where it splits M (counted as ``knn.knn.merges`` in
+    ``utils/profiling.COUNTS``); this entry serves tests and timing.  On chunk lists as the k-NN kernel writes them (ascending by
     (distance, index), chunk z's indices above chunk z-1's) it equals
     ``merge_first_k_plain``."""
     if not races._require_device(part_d):
@@ -257,7 +262,3 @@ def _merge_first_k_cuda(part_d, part_i):
                   part_i.data_ptr(), d.data_ptr(), i.data_ptr(), n, S, k)
     return i, d
 
-
-knn.launches = 0
-knn.merges = 0   # calls that split M and launched the merge (merge_first_k) too
-knn_select.launches = 0

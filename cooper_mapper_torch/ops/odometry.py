@@ -27,7 +27,7 @@ import dataclasses
 import torch
 
 from ..config import OdometryConfig
-from ..utils import twist
+from ..utils import profiling, twist
 from ..utils.cloud import Cloud
 from . import gauss_newton as gn
 from . import neighbors, residuals
@@ -112,24 +112,31 @@ def _warp(x, c: Cloud, rigid: bool):
 
 def _find_correspondences(x, sharp: Cloud, flat: Cloud, last_corner: Cloud,
                           last_surf: Cloud, cfg: OdometryConfig, rigid: bool):
-    pc = _warp(x, sharp, rigid)
-    ps = _warp(x, flat, rigid)
-    ia_c, ib_c, ok_c = neighbors.corner_pairs(pc, last_corner, cfg.nn_sq_dist_max,
-                                              cfg.ring_span, cfg.nn_query_chunk)
-    ia_s, ib_s, ic_s, ok_s = neighbors.surf_triples(ps, last_surf, cfg.nn_sq_dist_max,
-                                                    cfg.ring_span, cfg.nn_query_chunk)
-    shared_c = last_corner.xyz.dim() == 2
-    shared_s = last_surf.xyz.dim() == 2
-    take = neighbors.take_ref
-    return Correspondences(
-        A_c=take(last_corner.xyz, ia_c, shared_c),
-        B_c=take(last_corner.xyz, ib_c, shared_c),
-        ok_c=ok_c & sharp.mask,
-        A_s=take(last_surf.xyz, ia_s, shared_s),
-        B_s=take(last_surf.xyz, ib_s, shared_s),
-        C_s=take(last_surf.xyz, ic_s, shared_s),
-        ok_s=ok_s & flat.mask,
-    )
+    """One refresh block's searches and gathers (span ``odometry.refresh``;
+    counter ``race_matched``: the valid query points that found their
+    line or plane)."""
+    with profiling.span("odometry.refresh"):
+        pc = _warp(x, sharp, rigid)
+        ps = _warp(x, flat, rigid)
+        ia_c, ib_c, ok_c = neighbors.corner_pairs(pc, last_corner, cfg.nn_sq_dist_max,
+                                                  cfg.ring_span, cfg.nn_query_chunk)
+        ia_s, ib_s, ic_s, ok_s = neighbors.surf_triples(ps, last_surf, cfg.nn_sq_dist_max,
+                                                        cfg.ring_span, cfg.nn_query_chunk)
+        shared_c = last_corner.xyz.dim() == 2
+        shared_s = last_surf.xyz.dim() == 2
+        take = neighbors.take_ref
+        corr = Correspondences(
+            A_c=take(last_corner.xyz, ia_c, shared_c),
+            B_c=take(last_corner.xyz, ib_c, shared_c),
+            ok_c=ok_c & sharp.mask,
+            A_s=take(last_surf.xyz, ia_s, shared_s),
+            B_s=take(last_surf.xyz, ib_s, shared_s),
+            C_s=take(last_surf.xyz, ic_s, shared_s),
+            ok_s=ok_s & flat.mask,
+        )
+        profiling.count("race_matched", corr.ok_c)
+        profiling.count("race_matched", corr.ok_s)
+        return corr
 
 
 # The JAX package's kernel_backend values, and the nn_precision strings it
@@ -166,28 +173,32 @@ def _odometry_solve_pass(sharp: Cloud, flat: Cloud, last_corner: Cloud,
     """
     rigid = cfg.cv_dewarp and not parity_mode
 
+    def residual_rows(st, corr, it):
+        """The iteration's warps, coefficients and Jacobian rows (span
+        ``gn.residuals``): (J, b, ok)."""
+        with profiling.span("gn.residuals"):
+            pc = _warp(st.x, sharp, rigid)
+            ps = _warp(st.x, flat, rigid)
+            dir_c, res_c, w_ok_c = residuals.corner_coeff_odometry(
+                corr.A_c, corr.B_c, pc, it, cfg.corner_weight_slope, cfg.weight_min)
+            dir_s, res_s, w_ok_s = residuals.surf_coeff_odometry(
+                corr.A_s, corr.B_s, corr.C_s, ps, it, cfg.corner_weight_slope,
+                cfg.weight_min)
+            if parity_mode:
+                J_c = _reference_jacobian_rows(st.x, sharp.xyz, dir_c, port_typo=True)
+                J_s = _reference_jacobian_rows(st.x, flat.xyz, dir_s, port_typo=True)
+                res_c, res_s = cfg.residual_scale * res_c, cfg.residual_scale * res_s
+            elif rigid:
+                J_c = _reference_jacobian_rows(st.x, sharp.xyz, dir_c)
+                J_s = _reference_jacobian_rows(st.x, flat.xyz, dir_s)
+            else:
+                J_c = _exact_jacobian_rows(st.x, sharp.xyz, sharp.rel_time, dir_c)
+                J_s = _exact_jacobian_rows(st.x, flat.xyz, flat.rel_time, dir_s)
+            return (torch.cat([J_c, J_s], dim=-2), torch.cat([-res_c, -res_s], dim=-1),
+                    torch.cat([w_ok_c & corr.ok_c, w_ok_s & corr.ok_s], dim=-1))
+
     def step(st, corr, it, compute_projector=False):
-        pc = _warp(st.x, sharp, rigid)
-        ps = _warp(st.x, flat, rigid)
-        dir_c, res_c, w_ok_c = residuals.corner_coeff_odometry(
-            corr.A_c, corr.B_c, pc, it, cfg.corner_weight_slope, cfg.weight_min)
-        dir_s, res_s, w_ok_s = residuals.surf_coeff_odometry(
-            corr.A_s, corr.B_s, corr.C_s, ps, it, cfg.corner_weight_slope,
-            cfg.weight_min)
-        if parity_mode:
-            J_c = _reference_jacobian_rows(st.x, sharp.xyz, dir_c, port_typo=True)
-            J_s = _reference_jacobian_rows(st.x, flat.xyz, dir_s, port_typo=True)
-            res_c, res_s = cfg.residual_scale * res_c, cfg.residual_scale * res_s
-        elif rigid:
-            J_c = _reference_jacobian_rows(st.x, sharp.xyz, dir_c)
-            J_s = _reference_jacobian_rows(st.x, flat.xyz, dir_s)
-        else:
-            J_c = _exact_jacobian_rows(st.x, sharp.xyz, sharp.rel_time, dir_c)
-            J_s = _exact_jacobian_rows(st.x, flat.xyz, flat.rel_time, dir_s)
-        J = torch.cat([J_c, J_s], dim=-2)
-        b = torch.cat([-res_c, -res_s], dim=-1)
-        ok = torch.cat([w_ok_c & corr.ok_c, w_ok_s & corr.ok_s], dim=-1)
-        JtJ, Jtb, n_valid = gn.assemble_normal_eqs(J, b, ok)
+        JtJ, Jtb, n_valid = gn.assemble_normal_eqs(*residual_rows(st, corr, it))
         return gn.gn_step(
             st, JtJ, Jtb, n_valid, it, cfg.eig_threshold, cfg.delta_r_abort,
             cfg.delta_t_abort, cfg.min_matched, reference_mode=parity_mode,
@@ -244,12 +255,23 @@ def batch_odometry_solve(sharp: Cloud, flat: Cloud, last_corner: Cloud,
     pass k re-de-warps the ORIGINAL clouds with pass k-1's twist and solves
     again: the constant-velocity prior is exact only at constant motion
     (OdometryConfig.dewarp_passes).
+
+    Span ``odometry.solve``, a call's root; counters ``query_points`` (valid
+    sharp and flat points), ``lanes`` (B), ``steps`` (GN steps a lane may
+    take) and ``lane_steps`` (the steps the lanes took: sum of ``iter_used``).
     """
     check_knobs(cfg.kernel_backend, cfg.nn_precision, cfg.nn_query_chunk)
-    x, st = _odometry_solve_pass(sharp, flat, last_corner, last_surf, x0, cfg, parity_mode)
-    if cfg.cv_dewarp and not parity_mode:
-        for _ in range(max(cfg.dewarp_passes, 1) - 1):
-            x, st = _odometry_solve_pass(sharp, flat, last_corner, last_surf, x, cfg)
+    passes = max(cfg.dewarp_passes, 1) if cfg.cv_dewarp and not parity_mode else 1
+    with profiling.span("odometry.solve", call=True):
+        profiling.count("query_points", sharp.mask)
+        profiling.count("query_points", flat.mask)
+        profiling.count("lanes", x0.shape[0])
+        x = x0
+        for _ in range(passes):
+            x, st = _odometry_solve_pass(sharp, flat, last_corner, last_surf, x, cfg,
+                                         parity_mode)
+            profiling.count("steps", cfg.max_iterations)
+            profiling.count("lane_steps", st.iter_used)
     return x, st
 
 

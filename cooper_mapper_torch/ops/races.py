@@ -40,6 +40,11 @@ carries ``|r|^2 = BIG`` and ring ``1e9``; a candidate that fails a ring
 test has distance exactly ``BIG``.  Ties go to the smaller index.  Kernel
 and plain version evaluate the distance with the same f32 operations in the
 same order, so they agree bit for bit.
+
+Each wrapper counts its launches in ``utils/profiling.COUNTS``:
+``races.<kernel>.launches`` and, for a call that split M and so launched
+the merge too, ``races.<kernel>.merges``; ``races.merge_min.launches``
+counts the merge's launches inside those calls and through its own entry.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from ..utils import profiling
 
 BIG = 1.0e12
 RING_INVALID = 1.0e9
@@ -366,9 +373,9 @@ def _nn1_cuda(q, r_xyz, r_mask, plan=None):
     _launch("nn1", q, lib.cooper_nn1,
             q.data_ptr(), r_xyz.data_ptr(), r_mask.data_ptr(), d.data_ptr(), i.data_ptr(),
             _ptr(part_d), _ptr(part_i), B, Q, M, 0 if shared else M, S, L)
-    nn1.launches += 1
-    nn1.merges += S > 1
-    merge_min.launches += S > 1
+    profiling.tally("races.nn1.launches")
+    profiling.tally("races.nn1.merges", S > 1)
+    profiling.tally("races.merge_min.launches", S > 1)
     return i, d
 
 
@@ -395,9 +402,9 @@ def _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span=2.5, 
             r_mask.data_ptr(), r_ring.data_ptr(), d.data_ptr(), i.data_ptr(), _ptr(part_d),
             _ptr(part_i), B, Q, M, 0 if shared else M, int(mode == "same"), float(ring_span),
             S, L)
-    nn1_masked.launches += 1
-    nn1_masked.merges += S > 1
-    merge_min.launches += S > 1
+    profiling.tally("races.nn1_masked.launches")
+    profiling.tally("races.nn1_masked.merges", S > 1)
+    profiling.tally("races.merge_min.launches", S > 1)
     return i, d
 
 
@@ -437,9 +444,9 @@ def _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span=2.5, plan=Non
             rn.data_ptr(), ring.data_ptr(), db.data_ptr(), ib.data_ptr(),
             dc.data_ptr(), ic.data_ptr(), _ptr(part_d), _ptr(part_i), B, Q, M,
             0 if shared else M, float(ring_span), S, L)
-    bc_races.launches += 1
-    bc_races.merges += S > 1
-    merge_min.launches += S > 1
+    profiling.tally("races.bc_races.launches")
+    profiling.tally("races.bc_races.merges", S > 1)
+    profiling.tally("races.merge_min.launches", S > 1)
     return ib, db, ic, dc
 
 
@@ -478,7 +485,7 @@ def _fused_races_cuda(q, r_xyz, r_ring, r_mask, with_same, ring_span=2.5, plan=N
             q.data_ptr(), r_xyz.data_ptr(), r_mask.data_ptr(), r_ring.data_ptr(),
             da.data_ptr(), ia.data_ptr(), _ptr(db), _ptr(ib), dc.data_ptr(), ic.data_ptr(),
             B, Q, M, 0 if shared else M, int(with_same), float(ring_span), G, qpt)
-    fused_races.launches += 1
+    profiling.tally("races.fused_races.launches")
     return (ia, da, ib, db, ic, dc) if with_same else (ia, da, ic, dc)
 
 
@@ -486,7 +493,8 @@ def merge_min(part_d, part_i):
     """The chunk-order merge of S (min, argmin) pairs per query: part_d f32
     and part_i int32 [searches, S, n] (up to 4 searches) -> (idx, dist)
     [searches, n].  The race wrappers launch it inside their own call where
-    they split M (and count it here); this entry serves tests and timing."""
+    they split M (and count it as ``races.merge_min.launches``); this entry
+    serves tests and timing."""
     if not _require_device(part_d):
         return merge_min_plain(part_d, part_i)
     return _merge_min_cuda(part_d, part_i)
@@ -505,18 +513,8 @@ def _merge_min_cuda(part_d, part_i):
     i = torch.empty((searches, n), dtype=torch.int32, device=part_d.device)
     _launch("merge_min", part_d, library().cooper_merge_min, part_d.data_ptr(),
             part_i.data_ptr(), d.data_ptr(), i.data_ptr(), n, S, searches)
-    merge_min.launches += 1
+    profiling.tally("races.merge_min.launches")
     return i, d
 
 
-# merges: the calls that split M and so launched the merge (merge_min) too
-nn1.launches = 0
-nn1.merges = 0
-nn1_masked.launches = 0
-nn1_masked.merges = 0
-bc_races.launches = 0
-bc_races.merges = 0
-fused_races.launches = 0
-# merge_min's launches: those inside the split races' calls and its own
-merge_min.launches = 0
 KERNELS = (nn1, nn1_masked, bc_races, fused_races)

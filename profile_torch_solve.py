@@ -24,11 +24,13 @@ path it prints
 * CUDA kernels launched per batch solve;
 * device time by kernel, the largest first, with the port's own kernels'
   (wrapper-free) time per launch;
-* host and device time of its stages, from ``record_function`` ranges that
-  this script wraps around them: a kernel counts for a stage when it starts
-  inside that range's span on the device timeline; the rest is "other".
-  Scan-to-map: the residual build (k-NN, fits, coefficients, Jacobian) and
-  the GN step (projector, 6x6 solve, update).  Single stream: feature
+* host and device time of its stages, the program's own spans
+  (``utils/profiling.tracing``, on for the whole run): a kernel counts for
+  the innermost stage whose range holds its start on the device timeline;
+  the rest is "other".  Odometry: the refresh blocks' searches, the GN
+  iterations' residuals, normal equations and update.  Scan-to-map: the
+  k-NN searches, the line and plane fits, the residuals, the normal
+  equations, the update and the score gate's build.  Single stream: feature
   extraction, the odometry solve, the frame's voxel filter, the map's
   recentre and surround gather, the scan-to-map solve and the insert.
 
@@ -49,13 +51,17 @@ import torch
 RACES = ("nn1_kernel", "masked_kernel", "bc_races_kernel", "fused_races_kernel", "merge_min")
 KNN = ("knn_kernel", "merge_first_k")
 KERNEL_NAMES = {"odometry": RACES, "scan_match": KNN, "stream": RACES + KNN}
-SM_STAGES = ("residual_build", "gn_step")
-STREAM_STAGES = ("extract", "odometry_solve", "prepare_frame", "recenter", "surround",
-                 "scan_match", "insert")
+GN_STAGES = ("gn.residuals", "gn.normal_eqs", "gn.update")
+ODO_STAGES = ("odometry.refresh",) + GN_STAGES
+SM_STAGES = ("scan_match.search", "scan_match.fit") + GN_STAGES + ("scan_match.score",)
+STREAM_STAGES = ("features.extract", "odometry.solve", "mapping.prepare_frame",
+                 "mapping.recenter", "mapping.surround", "scan_match.solve", "mapping.insert")
 
 
-def profile(label, calls, batch, top, trace_dir, stages=(), kind=None):
-    """Trace each of ``calls`` (zero-argument callables; the caller warms up)."""
+def profile(label, calls, batch, top, trace_dir, trace, stages=(), kind=None):
+    """Trace each of ``calls`` (zero-argument callables; the caller warms up);
+    ``trace`` is the open ``profiling.tracing()`` block's, whose span names
+    are ranges, not device work."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n = len(calls)
@@ -66,9 +72,10 @@ def profile(label, calls, batch, top, trace_dir, stages=(), kind=None):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
 
-    # device activities, less the device-side spans of the stage ranges
+    # device activities, less the device-side ranges of the program's spans
+    ranges = {r.name for r in trace.spans} | set(stages)
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in dev_events if e.name not in stages]
+    kernels = [e for e in dev_events if e.name not in ranges]
     spans = [(e.name, e.time_range.start, e.time_range.end)
              for e in dev_events if e.name in stages]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels) / n
@@ -92,8 +99,8 @@ def profile(label, calls, batch, top, trace_dir, stages=(), kind=None):
     if spans:
         dev_us = dict.fromkeys(tuple(stages) + ("other",), 0.0)
         for e in kernels:
-            stage = next((nm for nm, a, b in spans if a <= e.time_range.start < b), "other")
-            dev_us[stage] += e.time_range.elapsed_us()
+            holding = [(a, nm) for nm, a, b in spans if a <= e.time_range.start < b]
+            dev_us[max(holding)[1] if holding else "other"] += e.time_range.elapsed_us()
         host_us = {e.key: (e.count, e.cpu_time_total) for e in prof.key_averages()
                    if e.key in stages and e.cpu_time_total > 0}   # the host-side ranges
         for stage, us in dev_us.items():
@@ -112,28 +119,12 @@ def profile(label, calls, batch, top, trace_dir, stages=(), kind=None):
             "stages": by_stage}
 
 
-def _ranged(name, fn):
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-def profile_stream(cs, top, trace_dir):
+def profile_stream(cs, top, trace_dir, trace):
     """One odometry and one mapping sweep of the single-stream drive, traced
     after sweeps 0-4, on each route."""
-    from cooper_mapper_torch.models import fused, laser_mapping, laser_odometry
+    from cooper_mapper_torch.models import fused
 
     cfg, sweeps, _, _ = cs.make_stream("cuda")
-    # stage ranges for this trace only: the package itself carries no instrumentation
-    fused.feat_ops.extract_features = _ranged("extract", fused.feat_ops.extract_features)
-    laser_odometry.odometry_ops.odometry_solve = _ranged(
-        "odometry_solve", laser_odometry.odometry_ops.odometry_solve)
-    laser_mapping.prepare_frame = _ranged("prepare_frame", laser_mapping.prepare_frame)
-    for name, stage in (("recenter", "recenter"), ("get_surround", "surround"),
-                        ("add_feature_cloud", "insert")):
-        setattr(laser_mapping.fm, name, _ranged(stage, getattr(laser_mapping.fm, name)))
-    laser_mapping.sm.scan_match = _ranged("scan_match", laser_mapping.sm.scan_match)
     out = {}
     for route in ("split", "fused"):
         os.environ["COOPER_PALLAS_FUSED"] = "1" if route == "fused" else "0"
@@ -146,10 +137,10 @@ def profile_stream(cs, top, trace_dir):
         out[route] = {
             "odometry_sweep": profile(f"stream {route} odometry_sweep",
                                       [lambda: run(fused.odometry_sweep, 5)], 1, top, trace_dir,
-                                      STREAM_STAGES, "stream"),
+                                      trace, STREAM_STAGES, "stream"),
             "mapping_sweep": profile(f"stream {route} mapping_sweep",
                                      [lambda: run(fused.mapping_sweep, 6)], 1, top, trace_dir,
-                                     STREAM_STAGES, "stream")}
+                                     trace, STREAM_STAGES, "stream")}
     os.environ["COOPER_PALLAS_FUSED"] = "0"
     return out
 
@@ -168,6 +159,7 @@ def main():
     from cooper_mapper_torch.config import OdometryConfig, ScanMatchConfig
     from cooper_mapper_torch.ops import odometry
     from cooper_mapper_torch.ops import scan_match as sm
+    from cooper_mapper_torch.utils import profiling
 
     name = torch.cuda.get_device_name(0)
     smi = cs.card_line()[1]
@@ -176,29 +168,25 @@ def main():
                         for _ in range(args.solves + 1)]
     out = {"device": name, "power": smi}
 
-    sharp1, flat1, ref_c, ref_s, _ = cs.make_problem("cuda")
-    sharp, flat = cs.tile(sharp1, cs.BATCH), cs.tile(flat1, cs.BATCH)
-    cfg = OdometryConfig()
-    solve = lambda x0: odometry.batch_odometry_solve(sharp, flat, ref_c, ref_s, x0, cfg)
-    x0s = priors(cs.BATCH)
-    solve(x0s[0])
-    out["odometry"] = profile("odometry", [lambda x0=x0: solve(x0) for x0 in x0s[1:]],
-                              cs.BATCH, args.top, args.trace)
+    with profiling.tracing() as tr:
+        sharp1, flat1, ref_c, ref_s, _ = cs.make_problem("cuda")
+        sharp, flat = cs.tile(sharp1, cs.BATCH), cs.tile(flat1, cs.BATCH)
+        cfg = OdometryConfig()
+        solve = lambda x0: odometry.batch_odometry_solve(sharp, flat, ref_c, ref_s, x0, cfg)
+        x0s = priors(cs.BATCH)
+        solve(x0s[0])
+        out["odometry"] = profile("odometry", [lambda x0=x0: solve(x0) for x0 in x0s[1:]],
+                                  cs.BATCH, args.top, args.trace, tr, ODO_STAGES)
 
-    corner1, surf1, map_c, map_s = cs.make_scan_match_problem("cuda")
-    corner, surf = cs.tile(corner1, cs.SM_BATCH), cs.tile(surf1, cs.SM_BATCH)
-    sm_cfg = ScanMatchConfig()
-    # stage ranges for this trace only: the package itself carries no instrumentation
-    build, step = sm._build_residuals, sm.gn.gn_step
-    sm._build_residuals = _ranged("residual_build", build)
-    sm.gn.gn_step = _ranged("gn_step", step)
-    solve = lambda x0: sm.batch_scan_match(corner, surf, map_c, map_s, x0, sm_cfg)
-    x0s = priors(cs.SM_BATCH)
-    solve(x0s[0])
-    out["scan_match"] = profile("scan_match", [lambda x0=x0: solve(x0) for x0 in x0s[1:]],
-                                cs.SM_BATCH, args.top, args.trace, SM_STAGES)
-    sm._build_residuals, sm.gn.gn_step = build, step
-    out["stream"] = profile_stream(cs, args.top, args.trace)
+        corner1, surf1, map_c, map_s = cs.make_scan_match_problem("cuda")
+        corner, surf = cs.tile(corner1, cs.SM_BATCH), cs.tile(surf1, cs.SM_BATCH)
+        sm_cfg = ScanMatchConfig()
+        solve = lambda x0: sm.batch_scan_match(corner, surf, map_c, map_s, x0, sm_cfg)
+        x0s = priors(cs.SM_BATCH)
+        solve(x0s[0])
+        out["scan_match"] = profile("scan_match", [lambda x0=x0: solve(x0) for x0 in x0s[1:]],
+                                    cs.SM_BATCH, args.top, args.trace, tr, SM_STAGES)
+        out["stream"] = profile_stream(cs, args.top, args.trace, tr)
     print(json.dumps(out), flush=True)
 
 

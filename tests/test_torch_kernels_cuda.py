@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from cooper_mapper_torch.ops import knn, races  # noqa: E402
 from cooper_mapper_torch.ops.neighbors import take_ref  # noqa: E402
+from cooper_mapper_torch.utils.profiling import COUNTS  # noqa: E402
 
 R, SPAN = 16, 2.5
 
@@ -49,7 +50,7 @@ def test_kernels_equal_plain_versions(cuda, per_problem, B, Q, M):
     # multiple of the 512-point reference tile; the B = 1 shapes of the
     # single-stream sweep, where bc_races splits M across blocks
     q, xyz, ring, mask = _problem(11, B, Q, M, per_problem, cuda)
-    before = [k.launches for k in races.KERNELS]
+    before = [COUNTS[f"races.{k.__name__}.launches"] for k in races.KERNELS]
     ia, da = races.nn1(q, xyz, mask)
     pia, pda = races.nn1_plain(q, xyz, mask)
     assert torch.equal(ia, pia) and torch.equal(da, pda)
@@ -62,7 +63,7 @@ def test_kernels_equal_plain_versions(cuda, per_problem, B, Q, M):
     assert all(torch.equal(a, b) for a, b in
                zip(races.bc_races(*args), races.bc_races_plain(*args)))
     torch.cuda.synchronize()
-    after = [k.launches for k in races.KERNELS]
+    after = [COUNTS[f"races.{k.__name__}.launches"] for k in races.KERNELS]
     assert [a - b for a, b in zip(after, before)] == [1, 2, 1, 0]
 
 
@@ -75,7 +76,7 @@ def test_fused_kernel_equals_plain_and_split_kernels(cuda, per_problem, Q, M):
     # on every query whose A is a valid point
     q, xyz, ring, mask = _problem(13, 2, Q, M, per_problem, cuda)
     q[:, :7] = 1e6                                  # FAR queries, as invalid points sit
-    before = races.fused_races.launches
+    before = COUNTS["races.fused_races.launches"]
     for with_same in (True, False):
         got = races.fused_races(q, xyz, ring, mask, with_same, SPAN)
         want = races.fused_races_plain(q, xyz, ring, mask, with_same, SPAN)
@@ -87,7 +88,7 @@ def test_fused_kernel_equals_plain_and_split_kernels(cuda, per_problem, Q, M):
         a_valid = take_ref(mask, ia, not per_problem)
         assert all(torch.equal(a[a_valid], b[a_valid]) for a, b in zip(got, split))
     torch.cuda.synchronize()
-    assert races.fused_races.launches == before + 2
+    assert COUNTS["races.fused_races.launches"] == before + 2
 
 
 @pytest.mark.cuda
@@ -153,11 +154,11 @@ def test_knn_kernel_equals_plain_version(cuda, per_problem, B, Q, M):
     # the 512-point tile), M == k, the scan-to-map surf shape and the
     # mapping sweep's B = 1 shapes, where the kernel splits M across blocks
     q, xyz, _, mask = _problem(12, B, Q, M, per_problem, cuda)
-    before = knn.knn.launches
+    before = COUNTS["knn.knn.launches"]
     got = knn.knn(q, xyz, mask)
     want = knn.knn_plain(q, xyz, mask)
     torch.cuda.synchronize()
-    assert knn.knn.launches == before + 1
+    assert COUNTS["knn.knn.launches"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[0].min()) >= 0 and int(got[0].max()) < M
 
@@ -249,11 +250,11 @@ def test_knn_split_equals_plain_under_ties_at_chunk_edges(cuda, k, M, S):
     # shorter than k (one point each at S = M), several chunks per tile
     plan = _plan(M, S)
     q, xyz, _, mask = _tied(5, 2, 300, M, cuda, edges=range(plan[1], M, plan[1]))
-    before = knn.knn.launches
+    before = COUNTS["knn.knn.launches"]
     got = knn._knn_cuda(q, xyz, mask, k, plan=plan)
     want = knn.knn_plain(q, xyz, mask, k)
     torch.cuda.synchronize()
-    assert knn.knn.launches == before + 1
+    assert COUNTS["knn.knn.launches"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -319,11 +320,11 @@ def test_bc_races_split_equals_plain_under_ties_at_chunk_edges(cuda, M, S):
     q, xyz, ring, mask = _tied(7, 2, 300, M, cuda, edges=range(plan[1], M, plan[1]))
     ia, _ = races.nn1(q, xyz, mask)
     ring_a = take_ref(ring, ia, True)
-    before = races.bc_races.launches
+    before = COUNTS["races.bc_races.launches"]
     got = races._bc_races_cuda(q, ring_a, ia, xyz, ring, mask, SPAN, plan=plan)
     want = races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, SPAN)
     torch.cuda.synchronize()
-    assert races.bc_races.launches == before + 1
+    assert COUNTS["races.bc_races.launches"] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -338,8 +339,8 @@ def _race_cuda(race, q, xyz, ring, mask, plan=None):
 
 
 def _race_counters(race):
-    k = races.nn1 if race == "nn1" else races.nn1_masked
-    return k.launches, k.merges
+    k = "nn1" if race == "nn1" else "nn1_masked"
+    return COUNTS[f"races.{k}.launches"], COUNTS[f"races.{k}.merges"]
 
 
 @pytest.mark.cuda
@@ -489,11 +490,11 @@ def test_fused_kernel_at_every_plan_equals_plain(cuda, plan, M, Q, per_problem):
     # plain version on every finite query, the scan's answer on a NaN one
     q, xyz, ring, mask = _fused_case(18, 2, Q, M, per_problem, cuda)
     for with_same in (True, False):
-        before = races.fused_races.launches
+        before = COUNTS["races.fused_races.launches"]
         got = races._fused_races_cuda(q, xyz, ring, mask, with_same, SPAN, plan=plan)
         want = races.fused_races_plain(q, xyz, ring, mask, with_same, SPAN)
         torch.cuda.synchronize()
-        assert races.fused_races.launches == before + 1
+        assert COUNTS["races.fused_races.launches"] == before + 1
         keep = _nan_rows_as_a_scan(got, q, ring, mask, with_same)
         for a, b in zip(got, want):
             assert torch.equal(a[keep], b[keep])
@@ -569,10 +570,10 @@ def test_merge_min_equals_the_one_scan(cuda, S):
     # sequential merge on the CPU by tests/test_torch_races.py)
     for searches, n in ((1, 1024), (2, 1000), (4, 37)):
         pd, pi = _merge_partials(searches, S, n, 64, cuda)
-        before = races.merge_min.launches
+        before = COUNTS["races.merge_min.launches"]
         got = races._merge_min_cuda(pd, pi)
         torch.cuda.synchronize()
-        assert races.merge_min.launches == before + 1
+        assert COUNTS["races.merge_min.launches"] == before + 1
         want = races.merge_min_plain(pd, pi)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -586,7 +587,7 @@ def test_merge_min_counts_the_split_races_merges(cuda, race):
     ia, _ = races.nn1_plain(q, xyz, mask)
     ring_a = take_ref(ring, ia, True)
     for S in (1, 9):
-        before = races.merge_min.launches
+        before = COUNTS["races.merge_min.launches"]
         if race == "nn1":
             races._nn1_cuda(q, xyz, mask, plan=_plan(2000, S))
         elif race == "bc":
@@ -594,7 +595,7 @@ def test_merge_min_counts_the_split_races_merges(cuda, race):
         else:
             races._nn1_masked_cuda(q, ring_a, ia, xyz, ring, mask, race, SPAN,
                                    plan=_plan(2000, S))
-        assert races.merge_min.launches == before + (S > 1)
+        assert COUNTS["races.merge_min.launches"] == before + (S > 1)
 
 
 # ---------------------------------------------------------------------------
@@ -885,9 +886,9 @@ def test_knn_at_k10_at_the_converters_shape(cuda):
     rng = np.random.RandomState(16)
     pts = torch.from_numpy(rng.uniform(-30, 30, (60000, 3)).astype(np.float32)).to(cuda)
     pts[:, 1] = torch.round(pts[:, 1])                  # planes, so near ties occur
-    before = knn.knn.launches
+    before = COUNTS["knn.knn.launches"]
     idx = feature_extracter.neighbours(pts, 10)
-    assert knn.knn.launches == before + 1
+    assert COUNTS["knn.knn.launches"] == before + 1
     sub = torch.from_numpy(rng.choice(60000, 2048, replace=False)).to(cuda)
     mask = torch.ones(60000, dtype=torch.bool, device=cuda)
     got = knn.knn(pts[sub][None], pts, mask, 10)
@@ -958,12 +959,13 @@ EVERY_K = tuple(range(1, 33)) + (33, 64, 100, 257)
 def test_knn_every_k_equals_plain_version(cuda, per_problem, B, Q, M):
     # both routes and (at B = 1) the split of the register lists, every k
     q, xyz, _, mask = _problem(21, B, Q, M, per_problem, cuda)
-    before = (knn.knn.launches, knn.knn_select.launches)
+    before = (COUNTS["knn.knn.launches"], COUNTS["knn.knn_select.launches"])
     for k in EVERY_K:
         got, want = knn.knn(q, xyz, mask, k), knn.knn_plain(q, xyz, mask, k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
     torch.cuda.synchronize()
-    assert (knn.knn.launches - before[0], knn.knn_select.launches - before[1]) == (32, 4)
+    assert (COUNTS["knn.knn.launches"] - before[0],
+            COUNTS["knn.knn_select.launches"] - before[1]) == (32, 4)
 
 
 @pytest.mark.cuda
@@ -1078,12 +1080,12 @@ def test_knn_select_route_at_the_list_edges(cuda, per_problem, order):
     q, xyz, _, mask = _problem(25, 2, 150, 1300, per_problem, cuda)
     if order == "spatial":
         xyz, mask = _spatially_ordered(xyz, mask)
-    before = knn.knn_select.launches
+    before = COUNTS["knn.knn_select.launches"]
     for k in SELECT_EDGE_KS + (1300,):
         got, want = knn.knn(q, xyz, mask, k), knn.knn_plain(q, xyz, mask, k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
     torch.cuda.synchronize()
-    assert knn.knn_select.launches == before + len(SELECT_EDGE_KS) + 1
+    assert COUNTS["knn.knn_select.launches"] == before + len(SELECT_EDGE_KS) + 1
 
 
 @pytest.mark.cuda
