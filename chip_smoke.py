@@ -666,79 +666,103 @@ def race_a_ring(q, ref):
     return neighbors.take_ref(ref.ring, ia, ref.xyz.dim() == 2), ia
 
 
+def walk_lists(q_mask, r_mask):
+    """The walk lists the main path gives a race (``races.valid_list`` of the
+    query and reference masks), as keyword arguments."""
+    from cooper_mapper_torch.ops import races
+
+    return dict(q_list=races.valid_list(q_mask), r_list=races.valid_list(r_mask))
+
+
 def kernel_phase(sharp, flat, ref_c, ref_s, x0):
     """Each race kernel against its plain version on the main path's inputs:
-    the de-warped query clouds of the first correspondence refresh."""
+    the de-warped query clouds of the first correspondence refresh, walked
+    as the main path walks them (the lists of the query and reference
+    masks, against the plain version given the query mask) and whole (as
+    the callers without lists, the loop drive's ICP among them)."""
     from cooper_mapper_torch.ops import races
     from cooper_mapper_torch.utils import twist
 
-    log("[3] kernels vs plain versions at the main path's shapes")
+    log("[3] kernels vs plain versions at the main path's shapes, listed and whole")
     qc = twist.warp_to_start(x0, sharp.xyz, sharp.rel_time).contiguous()
     qs = twist.warp_to_start(x0, flat.xyz, flat.rel_time).contiguous()
     B = qc.shape[0]
     span = 2.5
     rows = {}
 
+    def both(label, kern, plain, args, q_mask, ref, parts=((0, 2),)):
+        """The kernel listed against the plain version given ``q_mask``, and
+        whole against it without; each (idx, dist) part of the answers."""
+        errs = []
+        for walk, k, p in (("listed", kern(*args, **walk_lists(q_mask, ref.mask)),
+                            plain(*args, q_mask=q_mask)),
+                           ("whole", kern(*args), plain(*args))):
+            for tag, (a, b) in zip(("B", "C") if len(parts) > 1 else ("",), parts):
+                errs.append(compare_race(f"{label}{' ' + tag if tag else ''} {walk}", k[a:b],
+                                         p[a:b]))
+        return max(errs)
+
     # race A: corner and surf searches, shared reference; surf per problem too
-    errs = []
-    for tag, q, ref in (("corner", qc, ref_c), ("surf", qs, ref_s)):
-        errs.append(compare_race(f"nn1 {tag} {tuple(q.shape)} vs {tuple(ref.xyz.shape)}",
-                                 races.nn1(q, ref.xyz, ref.mask),
-                                 races.nn1_plain(q, ref.xyz, ref.mask)))
     ref_sb = tile(ref_s, B)
-    errs.append(compare_race(f"nn1 surf per-problem ref {tuple(ref_sb.xyz.shape)}",
-                             races.nn1(qs, ref_sb.xyz, ref_sb.mask),
-                             races.nn1_plain(qs, ref_sb.xyz, ref_sb.mask)))
-    rows["nn1"] = dict(err=max(errs), q=qs, ref=ref_s)
-    rows["nn1 corner"] = dict(err=max(errs), q=qc, ref=ref_c)
+    errs = [both(f"nn1 {tag} {tuple(q.shape)} vs {tuple(ref.xyz.shape)}", races.nn1,
+                 races.nn1_plain, (q, ref.xyz, ref.mask), qm, ref)
+            for tag, q, qm, ref in (("corner", qc, sharp.mask, ref_c),
+                                    ("surf", qs, flat.mask, ref_s),
+                                    ("surf per-problem ref", qs, flat.mask, ref_sb))]
+    rows["nn1"] = dict(err=max(errs), q=qs, q_mask=flat.mask, ref=ref_s)
+    rows["nn1 corner"] = dict(err=max(errs), q=qc, q_mask=sharp.mask, ref=ref_c)
 
     # ring race, "adj" (corner race B, on the main path) and "same"
     ra, ia = race_a_ring(qc, ref_c)
-    errs = []
-    for mode in ("adj", "same"):
-        args = (qc, ra, ia, ref_c.xyz, ref_c.ring, ref_c.mask, mode, span)
-        errs.append(compare_race(f"nn1_masked {mode} corner {tuple(qc.shape)}",
-                                 races.nn1_masked(*args), races.nn1_masked_plain(*args)))
-    rows["nn1_masked"] = dict(err=max(errs), q=qc, ref=ref_c, ra=ra, ia=ia)
+    errs = [both(f"nn1_masked {mode} corner {tuple(qc.shape)}", races.nn1_masked,
+                 races.nn1_masked_plain,
+                 (qc, ra, ia, ref_c.xyz, ref_c.ring, ref_c.mask, mode, span), sharp.mask, ref_c)
+            for mode in ("adj", "same")]
+    rows["nn1_masked"] = dict(err=max(errs), q=qc, q_mask=sharp.mask, ref=ref_c, ra=ra, ia=ia)
 
     # surf races B and C, shared and per-problem reference
     errs = []
     for tag, ref in (("shared", ref_s), ("per-problem", ref_sb)):
         ra_s, ia_s = race_a_ring(qs, ref)
-        args = (qs, ra_s, ia_s, ref.xyz, ref.ring, ref.mask, span)
-        k, p = races.bc_races(*args), races.bc_races_plain(*args)
-        errs.append(compare_race(f"bc_races B {tag}", k[:2], p[:2]))
-        errs.append(compare_race(f"bc_races C {tag}", k[2:], p[2:]))
+        errs.append(both(f"bc_races {tag}", races.bc_races, races.bc_races_plain,
+                         (qs, ra_s, ia_s, ref.xyz, ref.ring, ref.mask, span), flat.mask, ref,
+                         parts=((0, 2), (2, 4))))
         if tag == "shared":
-            rows["bc_races"] = dict(q=qs, ref=ref_s, ra=ra_s, ia=ia_s)
+            rows["bc_races"] = dict(q=qs, q_mask=flat.mask, ref=ref_s, ra=ra_s, ia=ia_s)
     rows["bc_races"]["err"] = max(errs)
 
-    # times at the main path's shapes of each kernel (nn1: surf, then corner)
+    # times at the main path's shapes of each kernel (nn1: surf, then corner),
+    # listed as the main path calls it
     log(f"    times ({RACE_TIMES})")
     return {name: race_times(name.split()[0], r["q"], r["ref"], r["err"], r.get("ra"),
-                             r.get("ia"), span)
+                             r.get("ia"), span, q_mask=r["q_mask"])
             for name, r in rows.items()}
 
 
-RACE_TIMES = ("CUDA events; wrapper calls; plain = the PyTorch version on the card; "
-              "library = torch.cdist chain")
+RACE_TIMES = ("CUDA events; wrapper calls, listed where the main path lists; plain = the "
+              "PyTorch version on the card; library = torch.cdist chain")
 
 
-def race_times(name, q, ref, err, ra=None, ia=None, span=2.5):
+def race_times(name, q, ref, err, ra=None, ia=None, span=2.5, q_mask=None):
     """A split race kernel's, plain version's and library chain's ms on a
     shared reference, beside the bound; logged and returned as a kernels-line
     row.  ``name`` is nn1, nn1_masked ("adj") or bc_races; the ring races
-    take A's ring ``ra`` and index ``ia``."""
+    take A's ring ``ra`` and index ``ia``.  With ``q_mask`` the kernel walks
+    the lists of the query and reference masks, as the main path calls it,
+    the plain version is given ``q_mask``, and the bound counts the valid
+    queries only."""
     from cooper_mapper_torch.ops import races
 
     Bq, Q, _ = q.shape
+    listed = {} if q_mask is None else walk_lists(q_mask, ref.mask)
+    masked = {} if q_mask is None else dict(q_mask=q_mask)
     M = ref.xyz.shape[0]
     big = torch.tensor(races.BIG, device=q.device)
     rexp = ref.xyz[None].expand(Bq, M, 3)
     inval = ~ref.mask
     if name == "nn1":
-        kern = lambda: races.nn1(q, ref.xyz, ref.mask)
-        plain = lambda: races.nn1_plain(q, ref.xyz, ref.mask)
+        kern = lambda: races.nn1(q, ref.xyz, ref.mask, **listed)
+        plain = lambda: races.nn1_plain(q, ref.xyz, ref.mask, **masked)
         lib = lambda: torch.cdist(q, rexp).square_().masked_fill_(inval, big).min(-1)
         n_out, with_ring = 1, False
     else:
@@ -753,14 +777,14 @@ def race_times(name, q, ref, err, ra=None, ia=None, span=2.5):
 
         if name == "nn1_masked":
             args = (q, ra, ia, ref.xyz, ref.ring, ref.mask, "adj", span)
-            kern = lambda: races.nn1_masked(*args)
-            plain = lambda: races.nn1_masked_plain(*args)
+            kern = lambda: races.nn1_masked(*args, **listed)
+            plain = lambda: races.nn1_masked_plain(*args, **masked)
             lib = lambda: torch.cdist(q, rexp).square_().masked_fill_(~adj_ok(), big).min(-1)
             n_out, with_ring = 1, True
         else:
             args = (q, ra, ia, ref.xyz, ref.ring, ref.mask, span)
-            kern = lambda: races.bc_races(*args)
-            plain = lambda: races.bc_races_plain(*args)
+            kern = lambda: races.bc_races(*args, **listed)
+            plain = lambda: races.bc_races_plain(*args, **masked)
 
             def lib():
                 d = torch.cdist(q, rexp).square_()
@@ -772,13 +796,17 @@ def race_times(name, q, ref, err, ra=None, ia=None, span=2.5):
     plain_ms = time_ms(plain, reps=3, warmup=1)
     library_ms = time_ms(lib, reps=3, warmup=1)
     slots, valid, per_query = ref_counts(Bq, ref.mask)
-    pairs = Q * per_query
+    n_q = Bq * Q if q_mask is None else int(q_mask.sum())
+    pairs = n_q * per_query // Bq
     t_ops = pairs * OPS_PER_PAIR[name] / FP32_PEAK_OPS * 1e3
     t_bytes = race_bytes(Bq, Q, slots, valid, n_out, with_ring) / HBM_BYTES_PER_S * 1e3
     row = dict(shape=f"{Bq}x{Q} vs {M}", valid_ref=valid, pairs=pairs, err=err, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"    {name} [{Bq}x{Q} vs {M}, {valid} valid, {pairs:.3g} valid pairs]: kernel "
+    if q_mask is not None:
+        row.update(walk="listed", valid_queries=n_q)
+    log(f"    {name} [{Bq}x{Q} vs {M}, {valid} valid, {n_q} valid queries, {pairs:.3g} valid "
+        f"pairs, {row.get('walk', 'whole')}]: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
@@ -1095,7 +1123,7 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
     rand = lambda *shape: torch.from_numpy(rng.uniform(-8, 8, shape).astype(np.float32)).to(dev)
     ragged_ref = (rand(1000, 3), torch.from_numpy(rng.randint(0, 16, 1000).astype(np.int32)).to(dev),
                   torch.from_numpy(rng.rand(1000) > 0.1).to(dev))
-    sq, fq, c_ref, s_ref = stream_clouds
+    sq, fq, c_ref, s_ref, sq_mask, fq_mask = stream_clouds
     bsharp, bflat, b_ref_c, b_ref_s = bench_clouds
     nb = min(8, bflat.shape[0])
     b_ref_sb = tile(b_ref_s, nb)
@@ -1131,7 +1159,22 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
             d_err = compare_exact(
                 f"{label} {'bc_races' if with_same else 'nn1_masked adj'} vs plain",
                 split[2:], plain)
-            single[label] = (q, ref, a_err, d_err, ring_a, ia)
+            # and as the single-stream drive calls them: listed (M split)
+            q_mask = sq_mask if ref is c_ref else fq_mask
+            walk = walk_lists(q_mask, mask)
+            ia_l, da_l = races.nn1(q, xyz, mask, **walk)
+            a_err = max(a_err, compare_exact(f"{label} nn1 listed vs nn1_plain", (ia_l, da_l),
+                                             races.nn1_plain(q, xyz, mask, q_mask)))
+            ring_l = neighbors.take_ref(ring, ia_l, shared)
+            args = (q, ring_l, ia_l, xyz, ring, mask)
+            listed = (races.bc_races(*args, span, **walk) if with_same
+                      else races.nn1_masked(*args, "adj", span, **walk))
+            plain = (races.bc_races_plain(*args, span, q_mask) if with_same
+                     else races.nn1_masked_plain(*args, "adj", span, q_mask))
+            d_err = max(d_err, compare_exact(
+                f"{label} {'bc_races' if with_same else 'nn1_masked adj'} listed vs plain",
+                listed, plain))
+            single[label] = (q, ref, a_err, d_err, ring_a, ia, q_mask)
 
     log("    times (CUDA events; plain = fused_races_plain on the card; library = "
         "torch.cdist chain: min, ring gather, masked mins)")
@@ -1193,12 +1236,14 @@ def fused_kernel_phase(stream_clouds, bench_clouds):
             f"{fmt_ms(split_ms)} ({split_by}; with the ring gather {split_all:.4f})")
     log(f"    the split kernels at the single-stream shapes, M split across blocks "
         f"({RACE_TIMES})")
-    q, ref, a_err, d_err, ring_a, ia = single["single-stream surf"]
-    out["bc_races single-stream"] = race_times("bc_races", q, ref, d_err, ring_a, ia, span)
-    out["nn1 single-stream surf"] = race_times("nn1", q, ref, a_err)
-    q, ref, a_err, d_err, ring_a, ia = single["single-stream corner"]
-    out["nn1 single-stream corner"] = race_times("nn1", q, ref, a_err)
-    out["nn1_masked single-stream"] = race_times("nn1_masked", q, ref, d_err, ring_a, ia, span)
+    q, ref, a_err, d_err, ring_a, ia, q_mask = single["single-stream surf"]
+    out["bc_races single-stream"] = race_times("bc_races", q, ref, d_err, ring_a, ia, span,
+                                               q_mask=q_mask)
+    out["nn1 single-stream surf"] = race_times("nn1", q, ref, a_err, q_mask=q_mask)
+    q, ref, a_err, d_err, ring_a, ia, q_mask = single["single-stream corner"]
+    out["nn1 single-stream corner"] = race_times("nn1", q, ref, a_err, q_mask=q_mask)
+    out["nn1_masked single-stream"] = race_times("nn1_masked", q, ref, d_err, ring_a, ia, span,
+                                                 q_mask=q_mask)
     out.update(merge_phase(single))
     return out
 
@@ -1236,7 +1281,7 @@ def merge_phase(single):
     from cooper_mapper_torch.build import library
     from cooper_mapper_torch.ops import races
 
-    q_s, ref_s, _, _, ring_a, ia = single["single-stream surf"]
+    q_s, ref_s, _, _, ring_a, ia, _ = single["single-stream surf"]
     q_c, ref_c = single["single-stream corner"][:2]
     n_sm = races.sm_count(q_s.device)
     plan = lambda q, ref, bq: races._split_plan(1, q.shape[1], ref.xyz.shape[0], n_sm, bq)[0]
@@ -1385,7 +1430,7 @@ def make_stream(device):
     f0 = features.extract_features(sweeps[0], cfg.registration)
     f1 = features.extract_features(sweeps[1], cfg.registration)
     clouds = (f1.sharp.xyz[None].contiguous(), f1.flat.xyz[None].contiguous(),
-              f0.less_sharp, f0.less_flat)
+              f0.less_sharp, f0.less_flat, f1.sharp.mask[None], f1.flat.mask[None])
     return cfg, sweeps, truth, clouds
 
 
@@ -4647,7 +4692,8 @@ def main():
                # no TPU counterpart: the merge of the split searches of nn1.py:69, :173, :301
                "merge_min": ("cooper_mapper_tpu/ops/pallas/nn1.py:69", "split.cuh"),
                "knn": ("cooper_mapper_tpu/ops/pallas/knn_stream.py:187", "knn.cu")}
-    extra = ("k", "valid_ref", "device_ms", "plan", "split_route_device_ms", "merges", "where")
+    extra = ("k", "valid_ref", "valid_queries", "walk", "device_ms", "plan",
+             "split_route_device_ms", "merges", "where")
     # the loop closure's shapes (phase 21): nn1 in ICP, the k-NN in the fine match
     more_shapes["nn1"].append(icp_run["nn1"])
     more_shapes["knn"] = [icp_run["knn"], convert["row"]]

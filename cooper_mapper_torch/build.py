@@ -199,12 +199,12 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.cooper_nn1.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+        lists = [P] * 4   # q_list, q_count, r_list, r_count
+        lib.cooper_nn1.argtypes = [P] * 3 + lists + [P] * 4 + [I] * 6 + [P]
         lib.cooper_nn1_block_queries.argtypes = []
-        lib.cooper_nn1_masked.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I,
-                                          P]
-        lib.cooper_bc_races.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,
-                                        P]
+        lib.cooper_nn1_whole_block_queries.argtypes = []
+        lib.cooper_nn1_masked.argtypes = [P] * 6 + lists + [P] * 4 + [I] * 5 + [F, I, I, P]
+        lib.cooper_bc_races.argtypes = [P] * 6 + lists + [P] * 6 + [I] * 4 + [F, I, I, P]
         lib.cooper_bc_races_block_queries.argtypes = []
         lib.cooper_fused_races.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I,
                                            P]
@@ -221,6 +221,7 @@ def library() -> ctypes.CDLL:
         for fn in (lib.cooper_nn1, lib.cooper_nn1_masked, lib.cooper_bc_races,
                    lib.cooper_fused_races, lib.cooper_fused_block_threads,
                    lib.cooper_merge_min, lib.cooper_knn, lib.cooper_nn1_block_queries,
+                   lib.cooper_nn1_whole_block_queries,
                    lib.cooper_bc_races_block_queries, lib.cooper_knn_block_queries,
                    lib.cooper_knn_register_max_k, lib.cooper_merge_first_k,
                    lib.cooper_knn_select, lib.cooper_knn_select_warp_max_k,

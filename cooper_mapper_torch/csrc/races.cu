@@ -87,6 +87,10 @@
 // from B, Q, M and the card's SM count (ops/races._split_plan); S = 1 writes
 // the output directly, no merge.  Why the merge gives the same bits as one
 // scan: split.cuh.
+// Given the caller's lists, the same three kernels walk only each problem's
+// valid queries and valid reference points (RefWalk, QueryWalk): the time
+// follows the valid pairs, not the padded slots, and the answers keep their
+// bits.  Without lists they walk every slot, as before.
 
 // fused_races_kernel (every race of one search in one launch, no scratch,
 // no merge).  The TPU kernel holds the whole [tile_q, M] distance tile in
@@ -139,14 +143,100 @@ struct RefTile {
   float ring[TILE_M];  // ring as float (1e9 where invalid)
 };
 
-// Cooperative load of reference points [base, base + n) into shared memory.
+// ---------------------------------------------------------------------------
+// The walks of nn1_kernel, masked_kernel and bc_races_kernel: which query
+// slots a block serves and which reference points it scans.
+//
+// Without lists a block walks every slot.  With the caller's lists (ops/races
+// valid_list: a stable partition of the slots, valid first, each group in
+// index order, and the valid count) it walks positions of the lists instead:
+// * the reference: positions [0, n) of the problem's list, n its valid count.
+//   Every scan, group and chunk runs over positions, and a point keeps its
+//   slot, lst[position], for the output.  The list is increasing in slot
+//   over [0, n), so the first minimum in position order is the first in slot
+//   order: ties still go to the smaller index.  A list that is the identity
+//   (every point valid, or none: then all M are walked, as without a list)
+//   is walked as positions = slots, with no list read.
+// * the queries: block x serves positions [x*T, (x+1)*T) of the problem's
+//   query list and writes each answer at the query's own slot.  A position
+//   at or past the valid count gets the fixed answer (BIG, 0) without a
+//   scan; a block wholly past it writes those and exits.  Every output slot
+//   is written by one launch.
+// Why the answers are the whole walk's, bit for bit, on every listed query
+// (ops/races.py has the plain versions): an invalid reference point carries
+// |r|^2 = BIG and ring 1e9, so (for a finite query) it loses race A to every
+// valid point, and in a ring race its value is BIG.  A ring race's whole walk
+// is the lexicographic (d, j) minimum of the listed walk's answer and of
+// (BIG, first invalid slot), as split.cuh merges chunks: ring_answer.
+// ---------------------------------------------------------------------------
+
+struct RefWalk {
+  const int* lst;      // null: position = slot
+  int n;               // positions walked
+  int first_invalid;   // lst[n] where the list is partial (0 < n < M), else -1
+
+  __device__ __forceinline__ int slot(int p) const { return lst ? lst[p] : p; }
+
+  // Position of slot j, or -1 where j is not walked.  The listed part is
+  // increasing, so a binary search finds it.
+  __device__ __forceinline__ int position(int j) const {
+    if (!lst) return j;
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lst[mid] < j) lo = mid + 1; else hi = mid;
+    }
+    return lo < n && lst[lo] == j ? lo : -1;
+  }
+};
+
+__device__ __forceinline__ RefWalk ref_walk(const int* __restrict__ r_list,
+                                            const int* __restrict__ r_count,
+                                            long long r_bstride, int b, int M) {
+  RefWalk w{nullptr, M, -1};
+  if (r_list == nullptr) return w;
+  const int c = r_count[r_bstride ? b : 0];
+  if (c > 0 && c < M) {
+    w.lst = r_list + b * r_bstride;
+    w.n = c;
+    w.first_invalid = w.lst[c];
+  }
+  return w;
+}
+
+struct QueryWalk {
+  const int* lst;   // null: position = slot
+  int n;            // listed (valid) positions: those that are scanned
+
+  __device__ __forceinline__ int slot(int p) const { return lst ? lst[p] : p; }
+};
+
+__device__ __forceinline__ QueryWalk query_walk(const int* __restrict__ q_list,
+                                                const int* __restrict__ q_count, int b, int Q) {
+  if (q_list == nullptr) return {nullptr, Q};
+  const int c = q_count[b];
+  return {c == Q ? nullptr : q_list + (long long)b * Q, c};
+}
+
+// A ring race's answer over the whole reference from its listed walk's
+// (d, slot): the lexicographic minimum with (BIG, the first invalid slot).
+// A chunk that walked nothing, (+inf, 0), becomes (BIG, first invalid),
+// which the chunk-order merge puts behind every earlier chunk's BIG.
+__device__ __forceinline__ void ring_answer(const RefWalk& w, float& d, int& j) {
+  if (w.first_invalid >= 0 && (BIG < d || (BIG == d && w.first_invalid < j))) {
+    d = BIG;
+    j = w.first_invalid;
+  }
+}
+
+// Cooperative load of reference positions [base, base + n) into shared memory.
 template <bool WITH_RING>
 __device__ __forceinline__ void load_tile(RefTile& t, const float* __restrict__ r,
                                           const float* __restrict__ rn,
-                                          const float* __restrict__ ring,
+                                          const float* __restrict__ ring, const RefWalk& w,
                                           int base, int n) {
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int j = base + k;
+    const int j = w.slot(base + k);
     t.p[k] = make_float4(r[3 * j], r[3 * j + 1], r[3 * j + 2], rn[j]);
     if (WITH_RING) t.ring[k] = ring[j];
   }
@@ -267,14 +357,16 @@ constexpr int RESCAN_BATCH = 8;
 // the group (g, g + G, ..., N points below c1) whose value, recomputed by the
 // same operations, equals the minimum.  A group lies in one tile.  In the
 // last tile staged (base `last`) it is read from shared memory; an earlier
-// one is read again from the caller's tensors, BATCH points' loads at a
-// time, so that they are in flight together and not one after another.
-// No group: (+inf, 0), as a scan from (+inf, 0) leaves it.
+// one is read again from the caller's tensors (through the walk's list:
+// positions, slot lst[j]; null lst, slot j), BATCH points' loads at a time,
+// so that they are in flight together and not one after another.  bi is a
+// position.  No group: (+inf, 0), as a scan from (+inf, 0) leaves it.
 template <RaceKind K, int G, int N, int BATCH>
 __device__ __forceinline__ void group_argmin(const RaceQuery& w, const RefTile& tile, int last,
                                              const float* __restrict__ r,
                                              const bool* __restrict__ mask,
-                                             const int* __restrict__ ring, int c1, float span,
+                                             const int* __restrict__ ring,
+                                             const int* __restrict__ lst, int c1, float span,
                                              float& bd, int& bi) {
   bd = INFINITY;
   bi = 0;
@@ -298,8 +390,9 @@ __device__ __forceinline__ void group_argmin(const RaceQuery& w, const RefTile& 
     for (int i = 0; i < BATCH; ++i) {
       const int j = j0 + i * G;
       if (j < e) {
-        p[i] = raw_point(r, mask, j);
-        rg[i] = K == RACE_A ? 0.0f : raw_ring(ring, mask, j);
+        const int sj = lst ? lst[j] : j;
+        p[i] = raw_point(r, mask, sj);
+        rg[i] = K == RACE_A ? 0.0f : raw_ring(ring, mask, sj);
       }
     }
 #pragma unroll
@@ -314,8 +407,9 @@ __device__ __forceinline__ void group_argmin(const RaceQuery& w, const RefTile& 
   }
 }
 
-// Block (x, b, z): THREADS * QPT queries of problem b against the chunk z of
-// M; writes (min, first argmin) to dst_d / dst_i[z * chunk_stride + query].
+// Block (x, b, z): THREADS * QPT query positions of problem b against the
+// chunk z of the reference positions; writes (min, first argmin) to dst_d /
+// dst_i[z * chunk_stride + the query's slot].  Lists: see RefWalk / QueryWalk.
 template <RaceKind K, int QPT>
 __device__ __forceinline__ void race_block(RefTile& tile, const float* __restrict__ q,
                                            const int* __restrict__ ra,
@@ -323,20 +417,37 @@ __device__ __forceinline__ void race_block(RefTile& tile, const float* __restric
                                            const float* __restrict__ r,
                                            const bool* __restrict__ mask,
                                            const int* __restrict__ ring,
+                                           const int* __restrict__ q_list,
+                                           const int* __restrict__ q_count,
+                                           const int* __restrict__ r_list,
+                                           const int* __restrict__ r_count,
                                            float* __restrict__ dst_d, int* __restrict__ dst_i,
                                            int Q, int M, long long r_bstride, float span, int L,
                                            long long chunk_stride) {
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * (THREADS * QPT) + threadIdx.x;
+  const int first = blockIdx.x * (THREADS * QPT);
+  const int p0 = first + threadIdx.x;
+  const long long zo = blockIdx.z * chunk_stride + (long long)b * Q;
+  const QueryWalk qw = query_walk(q_list, q_count, b, Q);
+  if (first >= qw.n) {   // no listed query in the block: the fixed answers
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      const int p = p0 + u * THREADS;
+      if (p < Q) { dst_d[zo + qw.slot(p)] = BIG; dst_i[zo + qw.slot(p)] = 0; }
+    }
+    return;
+  }
+  const RefWalk rw = ref_walk(r_list, r_count, r_bstride, b, M);
   RaceQuery w[QPT];
 #pragma unroll
   for (int u = 0; u < QPT; ++u) {
-    const int qi = q0 + u * THREADS;
-    const long long qo = (long long)b * Q + (qi < Q ? qi : 0);
+    // a position past the listed ones scans position 0's query, unwritten
+    const int p = p0 + u * THREADS;
+    const long long qo = (long long)b * Q + qw.slot(p < qw.n ? p : 0);
     w[u].qx = q[3 * qo]; w[u].qy = q[3 * qo + 1]; w[u].qz = q[3 * qo + 2];
     w[u].qn = sq_norm(w[u].qx, w[u].qy, w[u].qz);
     w[u].ring_a = K == RACE_A ? 0.0f : __int2float_rn(ra[qo]);
-    w[u].idx_a = K == RACE_SAME ? ia[qo] : 0;
+    w[u].idx_a = K == RACE_SAME ? rw.position(ia[qo]) : 0;
     w[u].best = INFINITY;
     w[u].group = -1;
   }
@@ -345,15 +456,16 @@ __device__ __forceinline__ void race_block(RefTile& tile, const float* __restric
   if (K != RACE_A) ring += b * r_bstride;
 
   int c0, c1;
-  chunk_of_block(M, L, c0, c1);
+  chunk_of_block(rw.n, L, c0, c1);
   int last = c0;   // base of the last tile staged
   for (int base = c0; base < c1; base += TILE_M) {
     const int n = min(TILE_M, c1 - base);
     last = base;
     __syncthreads();
     for (int k = threadIdx.x; k < n; k += THREADS) {
-      tile.p[k] = raw_point(r, mask, base + k);
-      if (K != RACE_A) tile.ring[k] = raw_ring(ring, mask, base + k);
+      const int j = rw.slot(base + k);
+      tile.p[k] = raw_point(r, mask, j);
+      if (K != RACE_A) tile.ring[k] = raw_ring(ring, mask, j);
     }
     __syncthreads();
     if (n == TILE_M) {
@@ -370,18 +482,21 @@ __device__ __forceinline__ void race_block(RefTile& tile, const float* __restric
     }
   }
 
-  // each query's argmin, found again in its recorded group
+  // each query's argmin, found again in its recorded group, as a slot
 #pragma unroll
   for (int u = 0; u < QPT; ++u) {
-    const int qi = q0 + u * THREADS;
+    const int p = p0 + u * THREADS;
     float bd;
     int bi;
-    group_argmin<K, 1, RACE_GROUP, RESCAN_BATCH / QPT>(w[u], tile, last, r, mask, ring, c1,
-                                                       span, bd, bi);
-    if (qi < Q) {
-      const long long o = blockIdx.z * chunk_stride + (long long)b * Q + qi;
-      dst_d[o] = bd;
-      dst_i[o] = bi;
+    group_argmin<K, 1, RACE_GROUP, RESCAN_BATCH / QPT>(w[u], tile, last, r, mask, ring, rw.lst,
+                                                       c1, span, bd, bi);
+    if (w[u].group >= 0) bi = rw.slot(bi);
+    if (K != RACE_A) ring_answer(rw, bd, bi);
+    if (p < Q) {
+      const long long o = zo + qw.slot(p);
+      const bool listed = p < qw.n;
+      dst_d[o] = listed ? bd : BIG;
+      dst_i[o] = listed ? bi : 0;
     }
   }
 }
@@ -390,11 +505,13 @@ __device__ __forceinline__ void race_block(RefTile& tile, const float* __restric
 template <int QPT>
 __global__ void __launch_bounds__(THREADS)
 nn1_kernel(const float* __restrict__ q, const float* __restrict__ r,
-           const bool* __restrict__ mask, float* __restrict__ dst_d, int* __restrict__ dst_i,
+           const bool* __restrict__ mask, const int* __restrict__ q_list,
+           const int* __restrict__ q_count, const int* __restrict__ r_list,
+           const int* __restrict__ r_count, float* __restrict__ dst_d, int* __restrict__ dst_i,
            int Q, int M, long long r_bstride, int L, long long chunk_stride) {
   __shared__ RefTile tile;
-  race_block<RACE_A, QPT>(tile, q, nullptr, nullptr, r, mask, nullptr, dst_d, dst_i, Q, M,
-                          r_bstride, 0.0f, L, chunk_stride);
+  race_block<RACE_A, QPT>(tile, q, nullptr, nullptr, r, mask, nullptr, q_list, q_count, r_list,
+                          r_count, dst_d, dst_i, Q, M, r_bstride, 0.0f, L, chunk_stride);
 }
 
 // One ring race: K = RACE_ADJ, 0 < |ring - ring_a| <= span; RACE_SAME,
@@ -404,11 +521,13 @@ __global__ void __launch_bounds__(THREADS)
 masked_kernel(const float* __restrict__ q, const int* __restrict__ ra,
               const int* __restrict__ ia, const float* __restrict__ r,
               const bool* __restrict__ mask, const int* __restrict__ ring,
+              const int* __restrict__ q_list, const int* __restrict__ q_count,
+              const int* __restrict__ r_list, const int* __restrict__ r_count,
               float* __restrict__ dst_d, int* __restrict__ dst_i, int Q, int M,
               long long r_bstride, float span, int L, long long chunk_stride) {
   __shared__ RefTile tile;
-  race_block<K, QPT>(tile, q, ra, ia, r, mask, ring, dst_d, dst_i, Q, M, r_bstride, span, L,
-                     chunk_stride);
+  race_block<K, QPT>(tile, q, ra, ia, r, mask, ring, q_list, q_count, r_list, r_count, dst_d,
+                     dst_i, Q, M, r_bstride, span, L, chunk_stride);
 }
 
 constexpr int BC_STEP = 64;   // points per step of the settled check
@@ -465,26 +584,41 @@ __device__ __forceinline__ void bc_step(const RefTile& t, int s, int n, int base
   }
 }
 
-// Surf races B and C.  Block (x, b, z): THREADS queries of problem b
-// against the chunk z of M; it writes (min, argmin) of B to
-// dst_db/dst_ib[z * chunk_stride + query] and of C to dst_dc/dst_ic.
+// Surf races B and C.  Block (x, b, z): THREADS query positions of problem b
+// against the chunk z of the reference positions; it writes (min, argmin) of
+// B to dst_db/dst_ib[z * chunk_stride + the query's slot] and of C to
+// dst_dc/dst_ic.  Lists: see RefWalk / QueryWalk.
 __global__ void __launch_bounds__(THREADS)
 bc_races_kernel(const float* __restrict__ q, const float* __restrict__ ra,
                 const int* __restrict__ ia, const float* __restrict__ r,
                 const float* __restrict__ rn, const float* __restrict__ ring,
+                const int* __restrict__ q_list, const int* __restrict__ q_count,
+                const int* __restrict__ r_list, const int* __restrict__ r_count,
                 float* __restrict__ dst_db, int* __restrict__ dst_ib,
                 float* __restrict__ dst_dc, int* __restrict__ dst_ic, int Q,
                 int M, long long r_bstride, float span, int L, long long chunk_stride) {
   __shared__ RefTile tile;
   const int b = blockIdx.y;
-  const int qi = blockIdx.x * THREADS + threadIdx.x;
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  const long long zo = blockIdx.z * chunk_stride + (long long)b * Q;
+  const QueryWalk qw = query_walk(q_list, q_count, b, Q);
+  if (blockIdx.x * THREADS >= qw.n) {   // no listed query in the block: the fixed answers
+    if (p < Q) {
+      const long long o = zo + qw.slot(p);
+      dst_db[o] = BIG; dst_ib[o] = 0;
+      dst_dc[o] = BIG; dst_ic[o] = 0;
+    }
+    return;
+  }
+  const RefWalk rw = ref_walk(r_list, r_count, r_bstride, b, M);
   BcQuery w;
   {
-    const long long qo = (long long)b * Q + (qi < Q ? qi : 0);
+    // a position past the listed ones scans position 0's query, unwritten
+    const long long qo = (long long)b * Q + qw.slot(p < qw.n ? p : 0);
     w.qx = q[3 * qo]; w.qy = q[3 * qo + 1]; w.qz = q[3 * qo + 2];
     w.qn = sq_norm(w.qx, w.qy, w.qz);
     w.ring_a = ra[qo];
-    w.idx_a = ia[qo];
+    w.idx_a = rw.position(ia[qo]);
     w.best_b = INFINITY; w.best_c = INFINITY;
     w.bidx_b = 0; w.bidx_c = 0;
   }
@@ -493,11 +627,11 @@ bc_races_kernel(const float* __restrict__ q, const float* __restrict__ ra,
   ring += b * r_bstride;
 
   int c0, c1;
-  chunk_of_block(M, L, c0, c1);
+  chunk_of_block(rw.n, L, c0, c1);
   for (int base = c0; base < c1; base += TILE_M) {
     const int n = min(TILE_M, c1 - base);
     __syncthreads();
-    load_tile<true>(tile, r, rn, ring, base, n);
+    load_tile<true>(tile, r, rn, ring, rw, base, n);
     __syncthreads();
     for (int s = 0; s < n; s += BC_STEP) {
       if (n - s >= BC_STEP) {
@@ -507,10 +641,16 @@ bc_races_kernel(const float* __restrict__ q, const float* __restrict__ ra,
       }
     }
   }
-  if (qi < Q) {
-    const long long o = blockIdx.z * chunk_stride + (long long)b * Q + qi;
-    dst_db[o] = w.best_b; dst_ib[o] = w.bidx_b;
-    dst_dc[o] = w.best_c; dst_ic[o] = w.bidx_c;
+  if (p < Q) {
+    // positions to slots (+inf: nothing entered, index 0 as the scan's start)
+    if (w.best_b < INFINITY) w.bidx_b = rw.slot(w.bidx_b);
+    if (w.best_c < INFINITY) w.bidx_c = rw.slot(w.bidx_c);
+    ring_answer(rw, w.best_b, w.bidx_b);
+    ring_answer(rw, w.best_c, w.bidx_c);
+    const long long o = zo + qw.slot(p);
+    const bool listed = p < qw.n;
+    dst_db[o] = listed ? w.best_b : BIG; dst_ib[o] = listed ? w.bidx_b : 0;
+    dst_dc[o] = listed ? w.best_c : BIG; dst_ic[o] = listed ? w.bidx_c : 0;
   }
 }
 
@@ -726,8 +866,8 @@ fused_races_kernel(const float* __restrict__ q, const float* __restrict__ r,
   for (int u = 0; u < QPT; ++u) {
     float da;
     int ia;
-    group_argmin<RACE_A, G, N, RESCAN_BATCH / QPT>(a[u], tile, last, r, mask, ring, M, span,
-                                                   da, ia);
+    group_argmin<RACE_A, G, N, RESCAN_BATCH / QPT>(a[u], tile, last, r, mask, ring, nullptr, M,
+                                                   span, da, ia);
     lanes_min<G>(da, ia);
     float ra = lane == 0 ? raw_ring(ring, mask, ia) : 0.0f;
     ra = __shfl_sync(0xffffffffu, ra, 0, G);
@@ -762,12 +902,12 @@ fused_races_kernel(const float* __restrict__ q, const float* __restrict__ r,
     const int qi = q0 + u * QB;
     float dc, db = 0.0f;
     int ic, ib = 0;
-    group_argmin<RACE_ADJ, G, N, RESCAN_BATCH / QPT>(wc[u], tile, last, r, mask, ring, M,
-                                                     span, dc, ic);
+    group_argmin<RACE_ADJ, G, N, RESCAN_BATCH / QPT>(wc[u], tile, last, r, mask, ring, nullptr,
+                                                     M, span, dc, ic);
     lanes_min<G>(dc, ic);
     if (WITH_SAME) {
-      group_argmin<RACE_SAME, G, N, RESCAN_BATCH / QPT>(wb[u], tile, last, r, mask, ring, M,
-                                                        span, db, ib);
+      group_argmin<RACE_SAME, G, N, RESCAN_BATCH / QPT>(wb[u], tile, last, r, mask, ring,
+                                                        nullptr, M, span, db, ib);
       lanes_min<G>(db, ib);
     }
     if (lane == 0 && qi < Q) {
@@ -825,19 +965,38 @@ int merge_one(const float* part_d, const int* part_i, float* out_d, int* out_i, 
   return launch_merge_min(part_d, part_i, out, n, S, 1, st);
 }
 
+// The caller's lists of one launch (each pair may be null: no list): the
+// query list [B,Q] i32 and its counts [B] i32; the reference list [*,M] i32
+// and its counts [*] i32 (one of each where the reference is shared).
+struct Lists {
+  const int* q_list;
+  const int* q_count;
+  const int* r_list;
+  const int* r_count;
+
+  // The lists of the slab of problems from b0.
+  Lists from(long long b0, int Q, int r_bstride) const {
+    return {q_list ? q_list + b0 * Q : nullptr, q_count ? q_count + b0 : nullptr,
+            r_list ? r_list + b0 * r_bstride : nullptr,
+            r_count && r_bstride ? r_count + b0 : r_count};
+  }
+};
+
 // nn1's launches for B <= MAX_GRID_Y problems: whole (S = 1) or split with
 // the merge.
-int launch_nn1(const float* q, const float* r, const bool* mask, float* out_d, int* out_i,
-               float* part_d, int* part_i, int B, int Q, int M, int r_bstride, int S, int L,
-               cudaStream_t st) {
+int launch_nn1(const float* q, const float* r, const bool* mask, Lists ls, float* out_d,
+               int* out_i, float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
+               int S, int L, cudaStream_t st) {
   if (S == 1) {
     nn1_kernel<WHOLE_QPT><<<race_grid<WHOLE_QPT>(B, Q, 1), THREADS, 0, st>>>(
-        q, r, mask, out_d, out_i, Q, M, r_bstride, M, 0);
+        q, r, mask, ls.q_list, ls.q_count, ls.r_list, ls.r_count, out_d, out_i, Q, M,
+        r_bstride, M, 0);
     return (int)cudaGetLastError();
   }
   const long long n = (long long)B * Q;
   nn1_kernel<SPLIT_QPT><<<race_grid<SPLIT_QPT>(B, Q, S), THREADS, 0, st>>>(
-      q, r, mask, part_d, part_i, Q, M, r_bstride, L, n);
+      q, r, mask, ls.q_list, ls.q_count, ls.r_list, ls.r_count, part_d, part_i, Q, M,
+      r_bstride, L, n);
   return merge_one(part_d, part_i, out_d, out_i, n, S, st);
 }
 
@@ -845,38 +1004,40 @@ int launch_nn1(const float* q, const float* r, const bool* mask, float* out_d, i
 // split with the merge.
 template <RaceKind K>
 int launch_masked(const float* q, const int* ring_a, const int* ia, const float* r,
-                  const bool* mask, const int* ring, float* out_d, int* out_i, float* part_d,
-                  int* part_i, int B, int Q, int M, int r_bstride, float span, int S, int L,
-                  cudaStream_t st) {
+                  const bool* mask, const int* ring, Lists ls, float* out_d, int* out_i,
+                  float* part_d, int* part_i, int B, int Q, int M, int r_bstride, float span,
+                  int S, int L, cudaStream_t st) {
   if (S == 1) {
     masked_kernel<K, WHOLE_QPT><<<race_grid<WHOLE_QPT>(B, Q, 1), THREADS, 0, st>>>(
-        q, ring_a, ia, r, mask, ring, out_d, out_i, Q, M, r_bstride, span, M, 0);
+        q, ring_a, ia, r, mask, ring, ls.q_list, ls.q_count, ls.r_list, ls.r_count, out_d,
+        out_i, Q, M, r_bstride, span, M, 0);
     return (int)cudaGetLastError();
   }
   const long long n = (long long)B * Q;
   masked_kernel<K, SPLIT_QPT><<<race_grid<SPLIT_QPT>(B, Q, S), THREADS, 0, st>>>(
-      q, ring_a, ia, r, mask, ring, part_d, part_i, Q, M, r_bstride, span, L, n);
+      q, ring_a, ia, r, mask, ring, ls.q_list, ls.q_count, ls.r_list, ls.r_count, part_d,
+      part_i, Q, M, r_bstride, span, L, n);
   return merge_one(part_d, part_i, out_d, out_i, n, S, st);
 }
 
 // bc_races' launches for B <= MAX_GRID_Y problems: whole (S = 1) or split
 // with the merge of both races.
 int launch_bc_races(const float* q, const float* ra, const int* ia, const float* r,
-                    const float* rn, const float* ring, float* out_db, int* out_ib,
+                    const float* rn, const float* ring, Lists ls, float* out_db, int* out_ib,
                     float* out_dc, int* out_ic, float* part_d, int* part_i, int B, int Q,
                     int M, int r_bstride, float span, int S, int L, cudaStream_t st) {
   const long long n = (long long)B * Q;
   const dim3 grid((Q + THREADS - 1) / THREADS, B, S);
   if (S == 1) {
     bc_races_kernel<<<grid, THREADS, 0, st>>>(
-        q, ra, ia, r, rn, ring, out_db, out_ib, out_dc, out_ic, Q, M, r_bstride, span,
-        M, 0);
+        q, ra, ia, r, rn, ring, ls.q_list, ls.q_count, ls.r_list, ls.r_count, out_db, out_ib,
+        out_dc, out_ic, Q, M, r_bstride, span, M, 0);
     return (int)cudaGetLastError();
   }
   const long long part_c = (long long)S * n;   // race C's partials follow race B's
   bc_races_kernel<<<grid, THREADS, 0, st>>>(
-      q, ra, ia, r, rn, ring, part_d, part_i, part_d + part_c, part_i + part_c, Q, M,
-      r_bstride, span, L, n);
+      q, ra, ia, r, rn, ring, ls.q_list, ls.q_count, ls.r_list, ls.r_count, part_d, part_i,
+      part_d + part_c, part_i + part_c, Q, M, r_bstride, span, L, n);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   MinOut out = {{out_db, out_dc, nullptr, nullptr}, {out_ib, out_ic, nullptr, nullptr}};
@@ -891,6 +1052,13 @@ int launch_bc_races(const float* q, const float* ra, const int* ia, const float*
 // B >= 1: more than MAX_GRID_Y problems are launched in slabs (over_slabs),
 // a slab's pointers moved to its first problem; the split scratch is reused
 // by each slab in turn.
+// nn1, nn1_masked and bc_races take the walks' lists (null: no list, every
+// slot walked): q_list [B,Q] and q_count [B], r_list [*,M] and r_count [*],
+// i32, each list a stable partition of the slots with the valid ones first
+// and its count the valid slots (ops/races.valid_list).  Block z of a split
+// launch then scans the reference positions [z*L, min(n, (z+1)*L)), n the
+// problem's count (M where it is 0 or M), and a query position at or past its
+// count is answered (BIG, 0) without a scan.
 // Each returns the cudaGetLastError() code of its launches (0 = launched).
 extern "C" {
 
@@ -898,31 +1066,39 @@ extern "C" {
 // the caller's split plan.  A launch with S == 1 serves WHOLE_QPT per thread.
 int cooper_nn1_block_queries() { return THREADS * SPLIT_QPT; }
 
+// Queries one block of an nn1 / nn1_masked launch with S == 1 serves.
+int cooper_nn1_whole_block_queries() { return THREADS * WHOLE_QPT; }
+
 // nn1 and nn1_masked read the reference as the caller holds it: r [*,M,3]
 // f32, mask [*,M] bool (one byte), ring [*,M] i32, ring_a and ia [B,Q] i32.
 // Block z scans [z*L, min(M, (z+1)*L)); the caller guarantees
 // (S-1)*L < M <= S*L.  With S > 1, part_d / part_i [S,B,Q] take the chunks'
 // results before merge_min joins them (unused, may be null, when S == 1).
-int cooper_nn1(const float* q, const float* r, const bool* mask, float* out_d, int* out_i,
-               float* part_d, int* part_i, int B, int Q, int M, int r_bstride, int S, int L,
-               void* stream) {
+int cooper_nn1(const float* q, const float* r, const bool* mask, const int* q_list,
+               const int* q_count, const int* r_list, const int* r_count, float* out_d,
+               int* out_i, float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
+               int S, int L, void* stream) {
+  const Lists ls = {q_list, q_count, r_list, r_count};
   return over_slabs(B, [&](int b0, int nb) {
     const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
-    return launch_nn1(q + 3 * qo, r + 3 * ro, mask + ro, out_d + qo, out_i + qo, part_d,
-                      part_i, nb, Q, M, r_bstride, S, L, (cudaStream_t)stream);
+    return launch_nn1(q + 3 * qo, r + 3 * ro, mask + ro, ls.from(b0, Q, r_bstride),
+                      out_d + qo, out_i + qo, part_d, part_i, nb, Q, M, r_bstride, S, L,
+                      (cudaStream_t)stream);
   });
 }
 
 int cooper_nn1_masked(const float* q, const int* ring_a, const int* ia, const float* r,
-                      const bool* mask, const int* ring, float* out_d, int* out_i,
-                      float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
-                      int mode_same, float span, int S, int L, void* stream) {
+                      const bool* mask, const int* ring, const int* q_list,
+                      const int* q_count, const int* r_list, const int* r_count, float* out_d,
+                      int* out_i, float* part_d, int* part_i, int B, int Q, int M,
+                      int r_bstride, int mode_same, float span, int S, int L, void* stream) {
   const auto launch = mode_same ? launch_masked<RACE_SAME> : launch_masked<RACE_ADJ>;
+  const Lists ls = {q_list, q_count, r_list, r_count};
   return over_slabs(B, [&](int b0, int nb) {
     const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
     return launch(q + 3 * qo, ring_a + qo, ia + qo, r + 3 * ro, mask + ro, ring + ro,
-                  out_d + qo, out_i + qo, part_d, part_i, nb, Q, M, r_bstride, span, S, L,
-                  (cudaStream_t)stream);
+                  ls.from(b0, Q, r_bstride), out_d + qo, out_i + qo, part_d, part_i, nb, Q, M,
+                  r_bstride, span, S, L, (cudaStream_t)stream);
   });
 }
 
@@ -934,15 +1110,18 @@ int cooper_bc_races_block_queries() { return THREADS; }
 // chunks' (B, C) results before merge_min joins them (unused, may be null,
 // when S == 1).
 int cooper_bc_races(const float* q, const float* ra, const int* ia,
-                    const float* r, const float* rn, const float* ring,
+                    const float* r, const float* rn, const float* ring, const int* q_list,
+                    const int* q_count, const int* r_list, const int* r_count,
                     float* out_db, int* out_ib, float* out_dc, int* out_ic,
                     float* part_d, int* part_i, int B, int Q, int M, int r_bstride,
                     float span, int S, int L, void* stream) {
+  const Lists ls = {q_list, q_count, r_list, r_count};
   return over_slabs(B, [&](int b0, int nb) {
     const long long qo = (long long)b0 * Q, ro = (long long)b0 * r_bstride;
     return launch_bc_races(q + 3 * qo, ra + qo, ia + qo, r + 3 * ro, rn + ro, ring + ro,
-                           out_db + qo, out_ib + qo, out_dc + qo, out_ic + qo, part_d, part_i,
-                           nb, Q, M, r_bstride, span, S, L, (cudaStream_t)stream);
+                           ls.from(b0, Q, r_bstride), out_db + qo, out_ib + qo, out_dc + qo,
+                           out_ic + qo, part_d, part_i, nb, Q, M, r_bstride, span, S, L,
+                           (cudaStream_t)stream);
   });
 }
 

@@ -30,7 +30,7 @@ from ..config import OdometryConfig
 from ..utils import profiling, twist
 from ..utils.cloud import Cloud
 from . import gauss_newton as gn
-from . import neighbors, residuals
+from . import neighbors, races, residuals
 
 
 @dataclasses.dataclass
@@ -111,17 +111,24 @@ def _warp(x, c: Cloud, rigid: bool):
 
 
 def _find_correspondences(x, sharp: Cloud, flat: Cloud, last_corner: Cloud,
-                          last_surf: Cloud, cfg: OdometryConfig, rigid: bool):
+                          last_surf: Cloud, cfg: OdometryConfig, rigid: bool,
+                          lists: tuple):
     """One refresh block's searches and gathers (span ``odometry.refresh``;
     counter ``race_matched``: the valid query points that found their
-    line or plane)."""
+    line or plane; the races' ``race_pairs_walked`` / ``race_pairs_padded``).
+    The races walk ``lists``, ``races.valid_list`` of the sharp, flat,
+    last_corner and last_surf masks: the valid queries against the valid
+    reference points."""
+    sharp_l, flat_l, corner_l, surf_l = lists
     with profiling.span("odometry.refresh"):
         pc = _warp(x, sharp, rigid)
         ps = _warp(x, flat, rigid)
         ia_c, ib_c, ok_c = neighbors.corner_pairs(pc, last_corner, cfg.nn_sq_dist_max,
-                                                  cfg.ring_span, cfg.nn_query_chunk)
+                                                  cfg.ring_span, cfg.nn_query_chunk,
+                                                  sharp_l, corner_l)
         ia_s, ib_s, ic_s, ok_s = neighbors.surf_triples(ps, last_surf, cfg.nn_sq_dist_max,
-                                                        cfg.ring_span, cfg.nn_query_chunk)
+                                                        cfg.ring_span, cfg.nn_query_chunk,
+                                                        flat_l, surf_l)
         shared_c = last_corner.xyz.dim() == 2
         shared_s = last_surf.xyz.dim() == 2
         take = neighbors.take_ref
@@ -223,10 +230,12 @@ def _odometry_solve_pass(sharp: Cloud, flat: Cloud, last_corner: Cloud,
         x0 = torch.zeros_like(x0)
 
     st = gn.gn_init(x0)
+    # the walk lists, once: no mask changes across the refreshes
+    lists = tuple(races.valid_list(c.mask) for c in (sharp, flat, last_corner, last_surf))
     n_blocks = -(-cfg.max_iterations // cfg.refresh_every)
     for block in range(n_blocks):
         corr = _find_correspondences(st.x, sharp, flat, last_corner, last_surf,
-                                     cfg, rigid)
+                                     cfg, rigid, lists)
         start = block * cfg.refresh_every
         stop = min(start + cfg.refresh_every, cfg.max_iterations)
         if block == 0:

@@ -41,6 +41,20 @@ test has distance exactly ``BIG``.  Ties go to the smaller index.  Kernel
 and plain version evaluate the distance with the same f32 operations in the
 same order, so they agree bit for bit.
 
+``nn1``, ``nn1_masked`` and ``bc_races`` take optional walk lists
+(``valid_list``): ``q_list`` of the query mask, ``r_list`` of the reference
+mask, each ``(order, count)``.  With ``r_list`` the kernel scans only each
+problem's valid reference points (all M where it has none, as without a
+list); with ``q_list`` it searches only the valid queries and answers every
+other query slot ``(BIG, 0)``, as the plain versions do given the query mask
+(``q_mask``).  On every valid query the answers equal the call without lists
+bit for bit: an invalid reference point loses race A to every valid one (for
+a finite query) and fails every ring test (``csrc/races.cu``, ``RefWalk``).
+Without lists each race walks every slot.  With tracing on, each of the
+three counts ``race_pairs_walked`` (the pairs its launch scans, whole query
+blocks included: ``_count_pairs``) and ``race_pairs_padded`` (B x Q x M) in
+the innermost open span.
+
 Each wrapper counts its launches in ``utils/profiling.COUNTS``:
 ``races.<kernel>.launches`` and, for a call that split M and so launched
 the merge too, ``races.<kernel>.merges``; ``races.merge_min.launches``
@@ -202,6 +216,90 @@ def _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask, mode="adj"):
             ring_a.to(torch.float32))
 
 
+def valid_list(mask):
+    """The walk of a masked axis: (order [*, N] int32, count [*] int32).
+    ``order`` is a stable partition of the slot indices 0..N-1, the valid
+    slots first and then the invalid ones, each group in index order;
+    ``count`` is the number of valid slots.  Where nothing is valid the
+    order is the identity (the races then walk every slot).  Device ops only
+    (a cumsum, a where and a scatter): no sort, no host sync."""
+    n = mask.shape[-1]
+    c = torch.cumsum(mask, -1, dtype=torch.int64)      # valid slots up to and at j
+    count = c[..., -1:]
+    slot = torch.arange(n, dtype=torch.int64, device=mask.device)
+    # valid slot j goes to position c - 1; invalid slot j to count + (j - c)
+    pos = torch.where(mask, c - 1, (slot - c) + count)
+    order = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    order.scatter_(-1, pos, slot.to(torch.int32).expand(mask.shape))
+    return order, count[..., 0].to(torch.int32)
+
+
+def list_mask(lst):
+    """The mask a walk list was built from: True at the slots of its first
+    ``count`` positions.  None for no list."""
+    if lst is None:
+        return None
+    order, count = lst
+    listed = torch.arange(order.shape[-1], device=order.device) < count[..., None]
+    return torch.zeros(order.shape, dtype=torch.bool, device=order.device).scatter_(
+        -1, order.long(), listed)
+
+
+def _check_lists(q_list, r_list, B, Q, M, shared, device):
+    """Validate the walk lists of a race of B problems of Q queries against
+    a reference of M points (shared: one list and a 0-d count)."""
+    lead = () if shared else (B,)
+    for name, lst, shape in (("q_list", q_list, (B, Q)), ("r_list", r_list, lead + (M,))):
+        if lst is None:
+            continue
+        order, count = lst
+        _check(f"{name} order", order, torch.int32, shape, device)
+        _check(f"{name} count", count, torch.int32, shape[:-1], device)
+
+
+def _check_listed(q, r_xyz, r_mask, q_list, r_list):
+    """The CPU path's check of a race's lists (the card's checks its own)."""
+    if q_list is not None or r_list is not None:
+        _check_lists(q_list, r_list, *_check_race(q, r_xyz, r_mask), q.device)
+
+
+def _list_ptrs(q_list, r_list):
+    """The data pointers of (q_list, r_list): order and count each, None
+    for no list."""
+    ptrs = []
+    for lst in (q_list, r_list):
+        ptrs += [None, None] if lst is None else [t.data_ptr() for t in lst]
+    return ptrs
+
+
+def _count_pairs(q, r_xyz, q_list, r_list, block):
+    """With tracing on: counters ``race_pairs_walked`` and
+    ``race_pairs_padded`` (B x Q x M) of one race.  Walked: over the
+    problems, the query slots of the blocks that serve a listed query,
+    min(Q, ceil(n_q / block) * block), times the listed reference points;
+    ``block`` is the launch's query positions per block (every lane of such
+    a block scans), 1 on the CPU, whose plain versions have no blocks.  With
+    tracing off nothing is formed."""
+    if not profiling.enabled():
+        return
+    B, Q, M = q.shape[0], q.shape[1], r_xyz.shape[-2]
+    nq = Q if q_list is None else torch.clamp(
+        -(-q_list[1].to(torch.int64) // block) * block, max=Q)
+    nr = M if r_list is None else torch.where(r_list[1] > 0, r_list[1], M).to(torch.int64)
+    walked = nq * nr
+    if not isinstance(walked, torch.Tensor) or walked.dim() == 0:
+        walked = walked * B                # the same for every problem
+    profiling.count("race_pairs_walked", walked)
+    profiling.count("race_pairs_padded", B * Q * M)
+
+
+def _fixed_answers(q_mask, i, d):
+    """(BIG, 0) at the query slots where ``q_mask`` is False (None: none)."""
+    if q_mask is None:
+        return i, d
+    return torch.where(q_mask, i, 0), torch.where(q_mask, d, BIG)
+
+
 def pairwise_sq_dist(q, r, rn):
     """[B, Q, 3] x [*, M, 3] (+ |r|^2 [*, M]) -> [B, Q, M] squared distances,
     ``(|q|^2 - 2*cross) + |r|^2`` with ``cross = (qx*rx + qy*ry) + qz*rz``.
@@ -253,8 +351,9 @@ def _ring_ok(ring, ra, ia, mode, ring_span, M):
 # ---------------------------------------------------------------------------
 
 
-def nn1_plain(q, r_xyz, r_mask):
-    """Race A, plain PyTorch: (idx [B, Q] int32, sq_dist [B, Q] f32)."""
+def nn1_plain(q, r_xyz, r_mask, q_mask=None):
+    """Race A, plain PyTorch: (idx [B, Q] int32, sq_dist [B, Q] f32).
+    ``q_mask`` [B, Q]: (BIG, 0) at the query slots where it is False."""
     B, Q, M, shared = _check_race(q, r_xyz, r_mask)
     rn = _ref_norms(r_xyz, r_mask)
     idx, dist = [], []
@@ -263,12 +362,13 @@ def nn1_plain(q, r_xyz, r_mask):
         i, m = _argmin_rows(d)
         idx.append(i)
         dist.append(m)
-    return torch.cat(idx), torch.cat(dist)
+    return _fixed_answers(q_mask, torch.cat(idx), torch.cat(dist))
 
 
 def nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
-                     ring_span: float = 2.5):
-    """One ring-constrained race, plain PyTorch: (idx, sq_dist) [B, Q]."""
+                     ring_span: float = 2.5, q_mask=None):
+    """One ring-constrained race, plain PyTorch: (idx, sq_dist) [B, Q];
+    (BIG, 0) where ``q_mask`` is False."""
     B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring,
                                                       r_mask, mode)
     idx, dist = [], []
@@ -278,12 +378,14 @@ def nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
         i, m = _argmin_rows(torch.where(ok, d, BIG))
         idx.append(i)
         dist.append(m)
-    return torch.cat(idx), torch.cat(dist)
+    return _fixed_answers(q_mask, torch.cat(idx), torch.cat(dist))
 
 
-def bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
+def bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5,
+                   q_mask=None):
     """Surf races B ("same") and C ("adj") from one distance per pair, plain
-    PyTorch: (ib, db, ic, dc), each [B, Q]."""
+    PyTorch: (ib, db, ic, dc), each [B, Q]; (BIG, 0) where ``q_mask`` is
+    False."""
     B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask)
     outs = [[], [], [], []]
     for s, e in _batch_chunks(B, Q, M):
@@ -294,7 +396,8 @@ def bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5)
         for k, res in enumerate(_argmin_rows(torch.where(ok_b, d, BIG))
                                 + _argmin_rows(torch.where(ok_c, d, BIG))):
             outs[k].append(res)
-    return tuple(torch.cat(o) for o in outs)
+    ib, db, ic, dc = (torch.cat(o) for o in outs)
+    return _fixed_answers(q_mask, ib, db) + _fixed_answers(q_mask, ic, dc)
 
 
 def fused_races_plain(q, r_xyz, r_ring, r_mask, with_same: bool, ring_span: float = 2.5):
@@ -353,26 +456,33 @@ def _require_device(q):
     return q.device.type == "cuda"
 
 
-def nn1(q, r_xyz, r_mask):
-    """Race A: (idx [B, Q] int32, sq_dist [B, Q] f32)."""
+def nn1(q, r_xyz, r_mask, q_list=None, r_list=None):
+    """Race A: (idx [B, Q] int32, sq_dist [B, Q] f32).  ``q_list`` /
+    ``r_list``: the walks' lists (``valid_list`` of the query / reference
+    mask), or None."""
     if not _require_device(q):
-        return nn1_plain(q, r_xyz, r_mask)
-    return _nn1_cuda(q, r_xyz, r_mask)
+        _check_listed(q, r_xyz, r_mask, q_list, r_list)
+        _count_pairs(q, r_xyz, q_list, r_list, 1)
+        return nn1_plain(q, r_xyz, r_mask, list_mask(q_list))
+    return _nn1_cuda(q, r_xyz, r_mask, q_list=q_list, r_list=r_list)
 
 
-def _nn1_cuda(q, r_xyz, r_mask, plan=None):
+def _nn1_cuda(q, r_xyz, r_mask, plan=None, q_list=None, r_list=None):
     """The nn1 kernel on CUDA tensors; ``plan`` = (S, L) overrides
     ``_split_plan`` (the card tests pin chunk edges with it)."""
     from ..build import library
 
     lib = library()
     B, Q, M, shared = _check_race(q, r_xyz, r_mask)
+    _check_lists(q_list, r_list, B, Q, M, shared, q.device)
     S, L = plan or _split_plan(B, Q, M, sm_count(q.device), lib.cooper_nn1_block_queries())
     _check_plan(S, L, M)
+    _count_pairs(q, r_xyz, q_list, r_list, _nn1_block(lib, S))
     d, i, part_d, part_i = _race_outputs(q.device, B, Q, S)
     _launch("nn1", q, lib.cooper_nn1,
-            q.data_ptr(), r_xyz.data_ptr(), r_mask.data_ptr(), d.data_ptr(), i.data_ptr(),
-            _ptr(part_d), _ptr(part_i), B, Q, M, 0 if shared else M, S, L)
+            q.data_ptr(), r_xyz.data_ptr(), r_mask.data_ptr(), *_list_ptrs(q_list, r_list),
+            d.data_ptr(), i.data_ptr(), _ptr(part_d), _ptr(part_i), B, Q, M,
+            0 if shared else M, S, L)
     profiling.tally("races.nn1.launches")
     profiling.tally("races.nn1.merges", S > 1)
     profiling.tally("races.merge_min.launches", S > 1)
@@ -380,32 +490,45 @@ def _nn1_cuda(q, r_xyz, r_mask, plan=None):
 
 
 def nn1_masked(q, ring_a, ia, r_xyz, r_ring, r_mask, mode: str,
-               ring_span: float = 2.5):
-    """One ring-constrained race ("adj" or "same"): (idx, sq_dist) [B, Q]."""
+               ring_span: float = 2.5, q_list=None, r_list=None):
+    """One ring-constrained race ("adj" or "same"): (idx, sq_dist) [B, Q].
+    ``q_list`` / ``r_list`` as for ``nn1``."""
     if not _require_device(q):
-        return nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span)
-    return _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span)
+        _check_listed(q, r_xyz, r_mask, q_list, r_list)
+        _count_pairs(q, r_xyz, q_list, r_list, 1)
+        return nn1_masked_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span,
+                                list_mask(q_list))
+    return _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span,
+                            q_list=q_list, r_list=r_list)
 
 
-def _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span=2.5, plan=None):
+def _nn1_masked_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, mode, ring_span=2.5, plan=None,
+                     q_list=None, r_list=None):
     """The nn1_masked kernel on CUDA tensors; ``plan`` = (S, L) overrides
     ``_split_plan``."""
     from ..build import library
 
     lib = library()
     B, Q, M, shared = _check_ring_race(q, ring_a, ia, r_xyz, r_ring, r_mask, mode)
+    _check_lists(q_list, r_list, B, Q, M, shared, q.device)
     S, L = plan or _split_plan(B, Q, M, sm_count(q.device), lib.cooper_nn1_block_queries())
     _check_plan(S, L, M)
+    _count_pairs(q, r_xyz, q_list, r_list, _nn1_block(lib, S))
     d, i, part_d, part_i = _race_outputs(q.device, B, Q, S)
     _launch("nn1_masked", q, lib.cooper_nn1_masked,
             q.data_ptr(), ring_a.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
-            r_mask.data_ptr(), r_ring.data_ptr(), d.data_ptr(), i.data_ptr(), _ptr(part_d),
-            _ptr(part_i), B, Q, M, 0 if shared else M, int(mode == "same"), float(ring_span),
-            S, L)
+            r_mask.data_ptr(), r_ring.data_ptr(), *_list_ptrs(q_list, r_list), d.data_ptr(),
+            i.data_ptr(), _ptr(part_d), _ptr(part_i), B, Q, M, 0 if shared else M,
+            int(mode == "same"), float(ring_span), S, L)
     profiling.tally("races.nn1_masked.launches")
     profiling.tally("races.nn1_masked.merges", S > 1)
     profiling.tally("races.merge_min.launches", S > 1)
     return i, d
+
+
+def _nn1_block(lib, S):
+    """Query positions per block of an nn1 / nn1_masked launch split S ways."""
+    return lib.cooper_nn1_block_queries() if S > 1 else lib.cooper_nn1_whole_block_queries()
 
 
 def _race_outputs(device, B, Q, S):
@@ -419,30 +542,39 @@ def _race_outputs(device, B, Q, S):
             torch.empty((S, B, Q), dtype=torch.int32, device=device))
 
 
-def bc_races(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5):
-    """Surf races B and C: (ib, db, ic, dc), each [B, Q]."""
+def bc_races(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span: float = 2.5, q_list=None,
+             r_list=None):
+    """Surf races B and C: (ib, db, ic, dc), each [B, Q].  ``q_list`` /
+    ``r_list`` as for ``nn1``."""
     if not _require_device(q):
-        return bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span)
-    return _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span)
+        _check_listed(q, r_xyz, r_mask, q_list, r_list)
+        _count_pairs(q, r_xyz, q_list, r_list, 1)
+        return bc_races_plain(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span,
+                              list_mask(q_list))
+    return _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span, q_list=q_list,
+                          r_list=r_list)
 
 
-def _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span=2.5, plan=None):
+def _bc_races_cuda(q, ring_a, ia, r_xyz, r_ring, r_mask, ring_span=2.5, plan=None,
+                   q_list=None, r_list=None):
     """The bc_races kernel on CUDA tensors; ``plan`` = (S, L) overrides
     ``_split_plan`` (the card tests pin chunk edges with it)."""
     from ..build import library
 
     lib = library()
     B, Q, M, shared, rn, ring, ra = _ring_race_inputs(q, ring_a, ia, r_xyz, r_ring, r_mask)
+    _check_lists(q_list, r_list, B, Q, M, shared, q.device)
     S, L = plan or _split_plan(B, Q, M, sm_count(q.device), lib.cooper_bc_races_block_queries())
     _check_plan(S, L, M)
+    _count_pairs(q, r_xyz, q_list, r_list, lib.cooper_bc_races_block_queries())
     out = lambda dt, *lead: torch.empty(lead + (B, Q), dtype=dt, device=q.device)
     db, ib, dc, ic = out(torch.float32), out(torch.int32), out(torch.float32), out(torch.int32)
     part_d, part_i = ((out(torch.float32, 2, S), out(torch.int32, 2, S)) if S > 1
                       else (None, None))
     _launch("bc_races", q, lib.cooper_bc_races,
             q.data_ptr(), ra.data_ptr(), ia.data_ptr(), r_xyz.data_ptr(),
-            rn.data_ptr(), ring.data_ptr(), db.data_ptr(), ib.data_ptr(),
-            dc.data_ptr(), ic.data_ptr(), _ptr(part_d), _ptr(part_i), B, Q, M,
+            rn.data_ptr(), ring.data_ptr(), *_list_ptrs(q_list, r_list), db.data_ptr(),
+            ib.data_ptr(), dc.data_ptr(), ic.data_ptr(), _ptr(part_d), _ptr(part_i), B, Q, M,
             0 if shared else M, float(ring_span), S, L)
     profiling.tally("races.bc_races.launches")
     profiling.tally("races.bc_races.merges", S > 1)

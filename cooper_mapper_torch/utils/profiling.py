@@ -166,6 +166,12 @@ def span(name: str, call: bool = False):
     return _Span(_TRACE, name, call)
 
 
+def enabled() -> bool:
+    """True inside a ``tracing()`` block: for counts whose tensors are worth
+    forming only when something reads them."""
+    return _TRACE is not None
+
+
 def count(name: str, value) -> None:
     """Add ``value`` (a Python int, or a tensor: a bool mask or per-lane
     counts, summed on its device without a synchronize) to counter ``name``

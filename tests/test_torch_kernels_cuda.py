@@ -599,6 +599,175 @@ def test_merge_min_counts_the_split_races_merges(cuda, race):
 
 
 # ---------------------------------------------------------------------------
+# The listed walks: nn1, nn1_masked and bc_races given valid_list's lists
+# ---------------------------------------------------------------------------
+
+
+def _listed_case(seed, B, Q, M, q_frac, r_frac, per_problem, device, tied=False, empty=(),
+                 pairs=False):
+    """Queries and a reference as a feature cloud holds them: a share
+    ``q_frac`` / ``r_frac`` of the slots valid, scattered, the others at
+    the FAR sentinel; ``tied`` puts the points on an integer grid (heavy
+    ties), ``pairs`` repeats each even slot in the odd one after it (M
+    even), ``empty`` lists problems whose reference has no valid point."""
+    rng = np.random.RandomState(seed)
+    lead = (B,) if per_problem else ()
+    pts = ((lambda *s: rng.randint(-3, 4, s).astype(np.float32)) if tied
+           else (lambda *s: rng.uniform(-30, 30, s).astype(np.float32)))
+    q, xyz = pts(B, Q, 3), pts(*lead, M, 3)
+    ring = rng.randint(0, 4 if tied else R, lead + (M,)).astype(np.int32)
+    q_mask = rng.rand(B, Q) < q_frac
+    r_mask = rng.rand(*(lead + (M,))) < r_frac
+    if pairs:
+        xyz[..., 1::2, :] = xyz[..., 0::2, :]
+        ring[..., 1::2] = ring[..., 0::2]
+        r_mask[..., 1::2] = r_mask[..., 0::2]
+    for b in empty:
+        r_mask[b] = False
+    q[~q_mask], xyz[~r_mask] = 1e6, 1e6
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (q, xyz, ring, q_mask, r_mask))
+
+
+def _listed_against_plain(q, xyz, ring, q_mask, r_mask, plan=None, miss_every=0):
+    """Every listed race on the card against its plain version given the
+    query mask, bit for bit on every slot; returns the answers."""
+    shared = xyz.dim() == 2
+    lists = dict(q_list=races.valid_list(q_mask), r_list=races.valid_list(r_mask))
+    ia, da = races._nn1_cuda(q, xyz, r_mask, plan=plan, **lists)
+    want = races.nn1_plain(q, xyz, r_mask, q_mask)
+    assert torch.equal(ia, want[0]) and torch.equal(da, want[1])
+    ring_a = take_ref(ring, ia, shared)
+    if miss_every:   # rings no candidate is near: no ring candidate passes
+        ring_a[:, ::miss_every] = 40
+    for mode in ("adj", "same"):
+        args = (q, ring_a, ia, xyz, ring, r_mask, mode, SPAN)
+        got = races._nn1_masked_cuda(*args, plan=plan, **lists)
+        want = races.nn1_masked_plain(*args, q_mask=q_mask)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), mode
+    args = (q, ring_a, ia, xyz, ring, r_mask, SPAN)
+    got = races._bc_races_cuda(*args, plan=plan, **lists)
+    want = races.bc_races_plain(*args, q_mask=q_mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return ia, ring_a, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+@pytest.mark.parametrize("B,Q,M,q_frac,r_frac", [(8, 1024, 8192, 0.59, 0.5),
+                                                 (8, 256, 2048, 0.48, 0.06),
+                                                 (3, 1000, 8191, 0.5, 0.3),
+                                                 (4, 256, 256, 1.0, 1.0),
+                                                 (4, 300, 700, 0.0, 0.5)],
+                         ids=["surf", "corner", "ragged", "all-valid", "no-valid-query"])
+def test_listed_races_equal_plain(cuda, per_problem, B, Q, M, q_frac, r_frac):
+    # the odometry cell's shapes and shares of valid slots (surf 8 x 1024 vs
+    # 8192 at ~50%, corner 8 x 256 vs 2048 at ~6%), ragged, every slot valid
+    # (identity lists, today's walk) and no valid query (every block exits)
+    q, xyz, ring, q_mask, r_mask = _listed_case(31, B, Q, M, q_frac, r_frac, per_problem, cuda)
+    ia, _, _ = _listed_against_plain(q, xyz, ring, q_mask, r_mask, miss_every=5)
+    assert (ia[~q_mask] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+def test_listed_races_without_a_valid_reference_point(cuda, per_problem):
+    # a problem with no valid reference point walks all M slots: the FAR
+    # sentinel's answer, as the parent's whole walk gives it
+    B, Q, M = 4, 256, 2048
+    q, xyz, ring, q_mask, r_mask = _listed_case(32, B, Q, M, 0.5, 0.06, per_problem, cuda,
+                                                empty=(1, 3) if per_problem else ())
+    if not per_problem:
+        r_mask = torch.zeros_like(r_mask)
+    _listed_against_plain(q, xyz, ring, q_mask, r_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("race_plan", [(8192, 128), (8192, 3), (8192, 2), (600, 4), (41, 41)],
+                         ids=lambda p: f"M{p[0]}-S{p[1]}")
+def test_listed_races_at_pinned_split_plans(cuda, race_plan):
+    # B = 1, as the single stream splits M: chunks cover list positions,
+    # so with ~45% valid the count falls inside one chunk and every later
+    # chunk walks nothing; integer-grid points (ties at the chunk edges)
+    M, S = race_plan
+    q, xyz, ring, q_mask, r_mask = _listed_case(33, 1, 700, M, 0.6, 0.45, False, cuda,
+                                                tied=True)
+    plan = _plan(M, S)
+    count = int(r_mask.sum())
+    assert 0 < count < M and (plan[0] == 1 or count < (plan[0] - 1) * plan[1])
+    _listed_against_plain(q, xyz, ring, q_mask, r_mask, plan=plan, miss_every=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 5])
+def test_listed_races_duplicates_keep_the_smaller_index(cuda, S):
+    # every valid point repeated in the next slot: the smaller index wins
+    # each tie, whole and split, per problem and shared
+    q, xyz, ring, q_mask, r_mask = _listed_case(34, 3, 512, 4096, 0.7, 0.5, True, cuda, tied=True,
+                                                pairs=True)
+    ia, _, _ = _listed_against_plain(q, xyz, ring, q_mask, r_mask, plan=_plan(4096, S))
+    assert (ia[q_mask] % 2 == 0).all()    # the first of each pair
+    _listed_against_plain(q, xyz[0].contiguous(), ring[0].contiguous(), q_mask,
+                          r_mask[0].contiguous(), plan=_plan(4096, S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 4])
+def test_listed_ring_race_with_no_candidate(cuda, S):
+    # no candidate passes the ring test anywhere: (BIG, 0), the parent's
+    # first failing slot, never the first listed one (problem 1's first
+    # valid slot is 3)
+    q, xyz, ring, q_mask, r_mask = _listed_case(35, 2, 300, 900, 0.8, 0.4, True, cuda,
+                                                tied=True)
+    r_mask[1, :3] = False
+    xyz[~r_mask] = 1e6
+    _, _, (ib, db, ic, dc) = _listed_against_plain(q, xyz, ring, q_mask, r_mask,
+                                                   plan=_plan(900, S), miss_every=1)
+    big = np.float32(races.BIG)
+    assert (db[q_mask] == big).all() and (dc[q_mask] == big).all()
+    assert (ib[q_mask] == 0).all() and (ic[q_mask] == 0).all()
+
+
+@pytest.mark.cuda
+def test_listed_races_beyond_65535_problems(cuda):
+    # the slabs move the lists and counts with the problems
+    B, Q, M = 65537, 3, 40
+    q, xyz, ring, q_mask, r_mask = _listed_case(36, B, Q, M, 0.6, 0.5, True, cuda)
+    _listed_against_plain(q, xyz, ring, q_mask, r_mask)
+    _listed_against_plain(q, xyz, ring, q_mask, r_mask, plan=_plan(M, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 4])
+def test_listed_pair_counters_count_the_launch_blocks(cuda, S):
+    # race_pairs_walked counts the query slots of the blocks that scan: each
+    # problem's valid queries rounded up to the launch's block (capped at Q)
+    from cooper_mapper_torch.build import library
+    from cooper_mapper_torch.utils import profiling
+
+    B, Q, M = 6, 700, 900
+    q, xyz, ring, q_mask, r_mask = _listed_case(37, B, Q, M, 0.3, 0.5, True, cuda)
+    lists = dict(q_list=races.valid_list(q_mask), r_list=races.valid_list(r_mask))
+    lib = library()
+    plan = _plan(M, S)
+    nr = r_mask.sum(-1).long().cpu()
+    nv = q_mask.sum(-1).long().cpu()
+    walked = lambda block: int((torch.clamp(-(-nv // block) * block, max=Q) * nr).sum())
+    with profiling.tracing() as tr:
+        with profiling.span("nn1"):
+            ia, _ = races._nn1_cuda(q, xyz, r_mask, plan=plan, **lists)
+        ring_a = take_ref(ring, ia, False)
+        with profiling.span("bc"):
+            races._bc_races_cuda(q, ring_a, ia, xyz, ring, r_mask, SPAN, plan=plan, **lists)
+    got = tr.counters()   # the spans also hold the launch tallies
+    nn1_block = lib.cooper_nn1_block_queries() if S > 1 else lib.cooper_nn1_whole_block_queries()
+    for span, block in (("nn1", nn1_block), ("bc", lib.cooper_bc_races_block_queries())):
+        pairs = {k: got[span].get(k) for k in ("race_pairs_walked", "race_pairs_padded")}
+        assert pairs == {"race_pairs_walked": walked(block),
+                         "race_pairs_padded": B * Q * M}, (span, pairs)
+
+
+# ---------------------------------------------------------------------------
 # The pipeline slice on the card: the cube map's dedup, the UKF, the entry point
 # ---------------------------------------------------------------------------
 

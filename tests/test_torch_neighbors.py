@@ -92,3 +92,31 @@ def test_take_ref_gathers_both_layouts():
     assert torch.equal(shared, xyz[idx.long()])
     assert torch.equal(per[0], xyz[idx[0].long()])
     assert torch.equal(per[1], xyz[idx[1].long()] + 100)
+
+
+def _query_mask(seed, B, Q):
+    return torch.from_numpy(np.random.RandomState(seed).rand(B, Q) < 0.6)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-problem"])
+@pytest.mark.parametrize("query_chunk", [0, 50], ids=["whole", "query-chunks"])
+def test_lists_keep_every_valid_querys_answer(shared, query_chunk):
+    # with the walk lists: the same indices and validity on every valid
+    # query as without them, indices 0 and valid False on the others; the
+    # CPU's query chunks give the same
+    from cooper_mapper_torch.ops import races
+
+    B, Q, M = 3, 128, 300
+    q, refs = _clouds(3, B, Q, M)
+    ref = bridge.cloud(refs[0], "cpu") if shared else _stack(refs)
+    q_mask = _query_mask(4, B, Q)
+    qt = torch.from_numpy(q)
+    qt[~q_mask] = 1e6
+    lists = (races.valid_list(q_mask), races.valid_list(ref.mask))
+    for search in (tnb.corner_pairs, tnb.surf_triples):
+        whole = search(qt, ref, GATE, SPAN)
+        listed = search(qt, ref, GATE, SPAN, query_chunk, *lists)
+        assert whole[-1][q_mask].float().mean() > 0.3
+        for w, got in zip(whole, listed):
+            assert torch.equal(got[q_mask], w[q_mask])
+            assert not got[~q_mask].any()

@@ -387,3 +387,181 @@ def test_nn1_and_masked_are_the_ordered_merge_of_chunks(race, per_problem):
         np.testing.assert_array_equal(got_d, w_d)
         np.testing.assert_array_equal(got_i, w_i)
     assert big_chunks > 0 or race == "nn1"
+
+
+# ---------------------------------------------------------------------------
+# The listed walks: valid_list, the plain versions' query mask, and the
+# card's walk over list positions (csrc/races.cu RefWalk) emulated here
+# ---------------------------------------------------------------------------
+
+
+def _masks(seed):
+    rng = np.random.RandomState(seed)
+    return {"scattered": rng.rand(4, 90) < 0.4, "none": np.zeros((4, 90), bool),
+            "all": np.ones((4, 90), bool), "mixed": rng.rand(4, 90) < rng.rand(4, 1)}
+
+
+@pytest.mark.parametrize("kind", ["scattered", "none", "all", "mixed"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-problem"])
+def test_valid_list_is_a_stable_partition(kind, shared):
+    mask = _t(_masks(40)[kind])
+    if shared:
+        mask = mask[0].contiguous()
+    order, count = races.valid_list(mask)
+    assert order.dtype == torch.int32 and count.dtype == torch.int32
+    assert order.shape == mask.shape and count.shape == mask.shape[:-1]
+    for m, o, c in zip(mask.reshape(-1, 90), order.reshape(-1, 90), count.reshape(-1)):
+        slots = torch.arange(90)
+        want = torch.cat([slots[m], slots[~m]]).to(torch.int32)   # valid first, index order
+        assert torch.equal(o, want) and int(c) == int(m.sum())
+        if not m.any():
+            assert torch.equal(o, slots.to(torch.int32))          # nothing valid: identity
+    assert torch.equal(races.list_mask((order, count)), mask)
+
+
+def _take_ring(values, idx, per_problem):
+    return torch.gather(values, 1, idx.long()) if per_problem else values[idx.long()]
+
+
+def _query_case(seed, B=3, Q_=70, M_=90, per_problem=True):
+    rng = np.random.RandomState(seed)
+    lead = (B,) if per_problem else ()
+    q = rng.randint(-3, 4, (B, Q_, 3)).astype(np.float32)
+    xyz = rng.randint(-3, 4, lead + (M_, 3)).astype(np.float32)
+    ring = rng.randint(0, 4, lead + (M_,)).astype(np.int32)
+    mask = rng.rand(*(lead + (M_,))) > 0.5
+    q_mask = rng.rand(B, Q_) < 0.6
+    q[~q_mask] = 1e6
+    return _t(q), _t(xyz), _t(ring), _t(mask), _t(q_mask)
+
+
+@pytest.mark.parametrize("race", ["nn1", "adj", "same", "bc"])
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+def test_plain_versions_answer_invalid_queries_big_and_0(race, per_problem):
+    # on a valid query the masked call is the unmasked one bit for bit; on
+    # an invalid one it is (BIG, 0), in every output of the race; the
+    # wrappers given a query list give the same on the CPU
+    q, xyz, ring, mask, q_mask = _query_case(41, per_problem=per_problem)
+    ia, _ = races.nn1_plain(q, xyz, mask)
+    ring_a = _take_ring(ring, ia, per_problem)
+    q_list, r_list = races.valid_list(q_mask), races.valid_list(mask)
+    if race == "nn1":
+        call = lambda **kw: races.nn1_plain(q, xyz, mask, **kw)
+        wrapped = races.nn1(q, xyz, mask, q_list, r_list)
+    elif race == "bc":
+        call = lambda **kw: races.bc_races_plain(q, ring_a, ia, xyz, ring, mask, SPAN, **kw)
+        wrapped = races.bc_races(q, ring_a, ia, xyz, ring, mask, SPAN, q_list, r_list)
+    else:
+        call = lambda **kw: races.nn1_masked_plain(q, ring_a, ia, xyz, ring, mask, race, SPAN,
+                                                   **kw)
+        wrapped = races.nn1_masked(q, ring_a, ia, xyz, ring, mask, race, SPAN, q_list, r_list)
+    whole, masked = call(), call(q_mask=q_mask)
+    assert 0 < int(q_mask.sum()) < q_mask.numel()
+    for w, m, c in zip(whole, masked, wrapped):
+        assert torch.equal(m[q_mask], w[q_mask]) and torch.equal(c, m)
+        fixed = 0 if m.dtype == torch.int32 else np.float32(races.BIG)
+        assert (m[~q_mask] == fixed).all()
+
+
+def _listed_walk(race, q, xyz, ring, mask, ring_a, ia, L):
+    """One problem's race as the card walks its list (csrc/races.cu):
+    chunks of L list positions over [0, n) (n the valid count; all M, in
+    slot order, where it is 0 or M), each chunk's argmin turned from a
+    position to a slot, a ring race's chunk answer joined with (BIG, first
+    invalid slot) (ring_answer), a chunk past n answering (+inf, 0) before
+    that, and the chunks merged in order with a strict "<"."""
+    M_ = mask.shape[0]
+    order, count = races.valid_list(mask)
+    n = int(count)
+    first_invalid = int(order[n]) if 0 < n < M_ else -1
+    if first_invalid < 0:
+        n, order = M_, torch.arange(M_, dtype=torch.int32)
+    at = {int(s): p for p, s in enumerate(order[:n].tolist())}
+    pa = torch.tensor([[at.get(int(j), -1) for j in row] for row in ia], dtype=torch.int32)
+    big = np.float32(races.BIG)
+    parts = []
+    for a in range(0, -(-M_ // L) * L, L):
+        a_, b_ = min(a, n), min(a + L, n)
+        if a_ >= b_:
+            i, d = torch.zeros(ia.shape, dtype=torch.int32), torch.full(ia.shape, np.inf)
+        else:
+            s = order[a_:b_].long()
+            if race == "nn1":
+                i, d = races.nn1_plain(q, xyz[s].contiguous(), mask[s].contiguous())
+            else:
+                i, d = races.nn1_masked_plain(q, ring_a, pa - a_, xyz[s].contiguous(),
+                                              ring[s].contiguous(), mask[s].contiguous(), race,
+                                              SPAN)
+            i = order[a_ + i.long()]
+        d = d.to(torch.float32)
+        if race != "nn1" and first_invalid >= 0:
+            take = (big < d) | ((d == big) & (first_invalid < i))
+            d, i = torch.where(take, big, d), torch.where(take, first_invalid, i)
+        parts.append((i.numpy(), d.numpy()))
+    return _merge_min(parts)
+
+
+@pytest.mark.parametrize("L", [90, 31, 7, 1], ids=lambda v: f"L{v}")
+@pytest.mark.parametrize("case", ["scattered", "first-invalid", "none", "all", "no-candidate"])
+@pytest.mark.parametrize("race", ["nn1", "adj", "same"])
+def test_listed_walk_equals_the_whole_walk(race, case, L):
+    # the card's listed walk, whole (L = M) and split into chunks of list
+    # positions (chunks past the count walk nothing), gives the whole
+    # walk's bits on every query: integer-grid points (ties), a first slot
+    # that is invalid, no valid point (the identity walk), every point
+    # valid, and a ring no candidate is near (then (BIG, 0))
+    _, xyz, ring, mask, _ = _query_case(42, B=1, Q_=60, per_problem=False)
+    q = _t(np.random.RandomState(45).randint(-3, 4, (1, 60, 3)).astype(np.float32))
+    mask = {"scattered": mask, "first-invalid": mask & (torch.arange(90) > 4),
+            "none": torch.zeros_like(mask), "all": torch.ones_like(mask),
+            "no-candidate": mask}[case]
+    ia, _ = races.nn1_plain(q, xyz, mask)
+    ring_a = ring[ia.long()]
+    ring_a[:, ::7] = torch.from_numpy(np.random.RandomState(43).randint(0, 4, (1, 9)))
+    if case == "no-candidate":
+        ring_a[:] = 40
+    want = (races.nn1_plain(q, xyz, mask) if race == "nn1" else
+            races.nn1_masked_plain(q, ring_a, ia, xyz, ring, mask, race, SPAN))
+    got_i, got_d = _listed_walk(race, q, xyz, ring, mask, ring_a, ia, L)
+    np.testing.assert_array_equal(got_d, want[1].numpy())
+    np.testing.assert_array_equal(got_i, want[0].numpy())
+    if case == "no-candidate" and race != "nn1":
+        assert (got_i == 0).all()
+
+
+@pytest.mark.parametrize("block", [1, 32, 64])
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+def test_pair_counters_count_whole_query_blocks(block, per_problem):
+    # walked: each problem's valid queries rounded up to whole blocks
+    # (capped at Q) x its listed reference points (M where none is valid)
+    from cooper_mapper_torch.utils import profiling
+
+    q, xyz, _, mask, q_mask = _query_case(45, per_problem=per_problem)
+    q_mask[1] = False
+    if per_problem:
+        mask[2] = False
+    q_list, r_list = races.valid_list(q_mask), races.valid_list(mask)
+    with profiling.tracing() as tr:
+        with profiling.span("race"):
+            races._count_pairs(q, xyz, q_list, r_list, block)
+            races._count_pairs(q, xyz, None, None, block)
+    B, Q_, M_ = q.shape[0], q.shape[1], xyz.shape[-2]
+    nq = [min(Q_, -(-int(n) // block) * block) for n in q_mask.sum(-1)]
+    nr = [int(n) or M_ for n in (mask.sum(-1) if per_problem else [mask.sum()] * B)]
+    walked = sum(a * b for a, b in zip(nq, nr))
+    assert nq[1] == 0 and (not per_problem or nr[2] == M_)
+    assert tr.counters() == {"race": {"race_pairs_walked": walked + B * Q_ * M_,
+                                      "race_pairs_padded": 2 * B * Q_ * M_}}
+
+
+def test_wrappers_reject_bad_lists():
+    q, xyz, ring, mask, q_mask = _query_case(44)
+    q_list, r_list = races.valid_list(q_mask), races.valid_list(mask)
+    with pytest.raises(ValueError):
+        races.nn1(q, xyz, mask, (q_list[0].long(), q_list[1]), r_list)          # dtype
+    with pytest.raises(ValueError):
+        races.nn1(q, xyz, mask, q_list, races.valid_list(mask[0]))              # shape
+    ia, _ = races.nn1(q, xyz, mask, q_list, r_list)
+    with pytest.raises(ValueError):
+        races.bc_races(q, _take_ring(ring, ia, True), ia, xyz, ring, mask, SPAN, q_list,
+                       (r_list[0], r_list[1][:1]))                              # count shape

@@ -180,6 +180,22 @@ def test_counters_equal_the_solves_own_sums(sweeps):
     assert fit.counts["fits_accepted"] <= search.counts["knn_gated"]
 
 
+def test_race_pair_counters_count_the_listed_walk(sweeps):
+    # each refresh's four races (nn1 and nn1_masked of the corner search,
+    # nn1 and bc_races of the surf one) count the valid queries x valid
+    # reference points they walk, and the padded slots they would
+    with profiling.tracing() as tr:
+        _, args = _odometry(sweeps)
+    sharp, flat, corner, surf = args[:4]
+    walked = 2 * int(sharp.mask.sum() * corner.mask.sum() + flat.mask.sum() * surf.mask.sum())
+    padded = 2 * B * (sharp.capacity * corner.capacity + flat.capacity * surf.capacity)
+    refreshes = [r for r in tr.spans if r.name == "odometry.refresh"]
+    tr.counters()
+    assert len(refreshes) == 5 and walked < padded
+    for r in refreshes:
+        assert (r.counts["race_pairs_walked"], r.counts["race_pairs_padded"]) == (walked, padded)
+
+
 def test_spans_share_the_profilers_clock(sweeps):
     # every in-memory span lies within its record_function event's host
     # interval, on the profiler's clock, to 50 us
